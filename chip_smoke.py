@@ -1,0 +1,455 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the exit code is non-zero:
+  1. build every CUDA kernel of ``semantic_suma_tpu_torch/csrc`` with nvcc
+     for sm_90a (one process per source, in parallel);
+  2. kernel A (bilateral filter) against its plain PyTorch version at 64x900
+     on a rendered scan and on a random map with invalid pixels on the wrap
+     columns and the top and bottom rows (rtol = atol = 2e-5);
+  3. kernel B (z-buffer) against its plain version at the projection shape
+     (57,600 candidates into 57,600 cells) and the fusion shape (2^18
+     candidates, 2 flags), with forced depth ties, signed zeros, NaNs and
+     invalid ids, in the packed-key and the exact branch: winners must be
+     exactly equal;
+  4. the card against the CPU on a small input: 10 scans at 32x180, each
+     scan's CPU step (plain versions) started from a copy of the card's
+     state; poses must agree within 1e-3 m and 1e-3 rad;
+  5. the main path: ``SurfelSLAM`` (loop closure and spill off) on cuda over
+     8 warm-up + 60 timed full-width scans of the synthetic world with the
+     bilateral filter on; launch counters are zeroed just before it and read
+     just after; asserts both kernels ran, no creation was dropped, and the
+     aligned ATE against ground truth is <= 0.05 m.
+It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+and last one ``{"ok": true, "device": {...}}`` line. Imports no JAX.
+
+Kernel times are device times: one call captured in a CUDA graph and
+replayed; the time of eager calls from Python is printed beside them.
+``--profile-scans N`` traces N more scans after the main path with
+``torch.profiler`` and prints the device time by kernel and the idle share.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def _events_ms(fn, iters: int, warmup: int) -> float:
+    """Mean ms per call over ``iters`` back-to-back calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int, warmup: int = 3):
+    """(device ms, eager ms) per call. The device time replays one call
+    captured in a CUDA graph, so the host's Python, ctypes and allocation
+    work between calls is out of it; the eager time is back-to-back calls
+    from Python, which bounds a caller when the host is the slower side."""
+    eager = _events_ms(fn, iters, warmup)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _events_ms(graph.replay, iters, 1), eager
+
+
+def phase_build():
+    from semantic_suma_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    built = cuda_build.build_all(force=True)
+    dt = time.perf_counter() - t0
+    print(f"[build] {sorted(built)} in {dt:.1f} s (parallel nvcc, sm_90a)")
+    for name, rec in built.items():
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    missing = set(cuda_build.sources()) - set(built)
+    if missing:
+        raise RuntimeError(f"kernels not rebuilt from source: {missing}")
+    return dt
+
+
+def _needed_taps(valid: torch.Tensor, radius: int) -> int:
+    """(valid pixel, valid neighbour) pairs of the (2R+1)^2 window: columns
+    wrap, rows outside the image are dropped."""
+    h = valid.shape[0]
+    total = torch.zeros((), dtype=torch.int64, device=valid.device)
+    for dy in range(-radius, radius + 1):
+        lo, hi = max(0, -dy), min(h, h - dy)
+        centre = valid[lo:hi]
+        for dx in range(-radius, radius + 1):
+            nb = torch.roll(valid[lo + dy:hi + dy], -dx, dims=1)
+            total += (centre & nb).sum()
+    return int(total)
+
+
+def phase_bilateral(dev):
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    from semantic_suma_tpu_torch.ops.bilateral import (bilateral_filter,
+                                                       bilateral_filter_plain)
+    from semantic_suma_tpu_torch.ops.projection import project_scan
+
+    cfg = DataConfig()
+    h, w = cfg.height, cfg.width
+    pose = circular_trajectory(1, radius=18.0, step=1.5, device=dev)[0]
+    scan = render_scan(default_world(0, extent=45.0), pose, cfg)
+    proj = project_scan(scan.points, scan.labels, scan.probs, cfg=cfg,
+                        point_valid=scan.valid)
+    rng = np.random.default_rng(0)
+    rand_v = rng.normal(size=(h, w, 3)).astype(np.float32) * 5 + 10
+    rand_ok = rng.uniform(size=(h, w)) >= 0.1
+    for sl in ((slice(None), 0), (slice(None), w - 1), (0, slice(None)),
+               (h - 1, slice(None))):
+        rand_ok[sl] = rng.uniform(size=rand_ok[sl].shape) >= 0.5
+    inputs = [("scan", proj.vertex_map, proj.vertex_valid),
+              ("random", torch.from_numpy(rand_v).to(dev),
+               torch.from_numpy(rand_ok).to(dev))]
+    sig_s, sig_r = 0.5 * 9.0, 2.5  # preprocess_scan's sigmas
+    err = 0.0
+    for name, vm, vv in inputs:
+        got = bilateral_filter(vm, vv, sig_s, sig_r)
+        want = bilateral_filter_plain(vm, vv, sig_s, sig_r)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        print(f"[bilateral] {name}: max |kernel - plain| = {e:.3e} "
+              f"(valid {int(vv.sum())}/{h * w})")
+    vm, vv = inputs[0][1], inputs[0][2]
+    ms, eager_ms = time_ms(lambda: bilateral_filter(vm, vv, sig_s, sig_r),
+                           200)
+    plain_ms, _ = time_ms(
+        lambda: bilateral_filter_plain(vm, vv, sig_s, sig_r), 5, warmup=1)
+    # bytes: vertex read (12 B), valid read (1 B), output written (12 B);
+    # operations: ~8 fp32 operations (exp counted as one) for each tap that
+    # a valid pixel takes from a valid neighbour, counted on this scan
+    taps = _needed_taps(vv, 6)
+    bytes_ms = h * w * (12 + 1 + 12) / HBM_BYTES_PER_S * 1e3
+    ops_ms = taps * 8 / FP32_FLOP_PER_S * 1e3
+    print(f"[bilateral] kernel {ms:.4f} ms (eager calls {eager_ms:.4f} ms), "
+          f"plain {plain_ms:.3f} ms, bound "
+          f"{max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes {bytes_ms * 1e3:.3f} "
+          f"us, fp32 ops {ops_ms * 1e3:.3f} us over {taps} valid taps)")
+    return {"name": "bilateral_filter", "route": "cuda",
+            "source": "semantic_suma_tpu_torch/csrc/bilateral.cu",
+            "replaces": "semantic_suma_tpu/ops/pallas_kernels.py:84",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def _zb_inputs(n, cells, n_flags, seed, dev):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-2000, cells + 2000, size=n)       # ~7% invalid ids
+    depth = rng.uniform(0.0, 130.0, size=n).astype(np.float32)
+    depth[: n // 4] = np.round(depth[: n // 4], 1)        # forced ties
+    special = np.array([0x00000000, 0x80000000, 0xC0400000, 0x7F800000,
+                        0x7FC00000, 0xFFC00000, 0x7FC00001],
+                       np.uint32).view(np.float32)  # 0, -0, -3, inf, NaNs
+    depth[n // 4: n // 4 + 7 * 64] = np.repeat(special, 64)
+    flags = tuple(torch.from_numpy(rng.uniform(size=n) < 0.5).to(dev)
+                  for _ in range(n_flags))
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(depth).to(dev),
+            flags)
+
+
+def phase_zbuffer(dev):
+    from semantic_suma_tpu_torch.ops import zbuffer as zb
+
+    cells = 64 * 900
+    out = {}
+    for label, n, n_flags, qoff in (("projection", cells, 0, 0),
+                                    ("fusion", 1 << 18, 2, 1)):
+        ids, depth, flags = _zb_inputs(n, cells, n_flags, 7 + n_flags, dev)
+        exact, scale, qmax = zb._quantization(cells, 100.0)
+        kw = dict(exact=exact, scale=scale, qclip=qmax - qoff, qoff=qoff)
+        # the packed keys of the path, then the exact (two-key) branch at
+        # the same shape
+        err = 0
+        for kwi in (kw, dict(exact=True, scale=1.0, qclip=0, qoff=0)):
+            w_k, d_k = zb.zbuffer_cells(ids, depth, flags, cells, **kwi)
+            w_p, d_p = zb.zbuffer_cells_plain(ids, depth, flags, cells, **kwi)
+            torch.cuda.synchronize()
+            err = max(err, int((w_k - w_p).abs().max()),
+                      int((d_k - d_p).abs().max()))
+            if not (torch.equal(w_k, w_p) and torch.equal(d_k, d_p)):
+                bad = int((w_k != w_p).sum())
+                raise AssertionError(f"zbuffer {label} (exact="
+                                     f"{kwi['exact']}): {bad} winners differ")
+        w_k, _ = zb.zbuffer_cells(ids, depth, flags, cells, **kw)
+        filled = int((w_k[0] >= 0).sum())
+        ms, eager_ms = time_ms(
+            lambda: zb.zbuffer_cells(ids, depth, flags, cells, **kw), 200)
+        plain_ms, _ = time_ms(
+            lambda: zb.zbuffer_cells_plain(ids, depth, flags, cells, **kw), 50)
+        # the yardstick: ONE scatter_reduce_ (amin) over the same keys for
+        # every query at once, each query's cells in its own slice of one
+        # table; a non-member carries the empty key, which changes no cell
+        nq = 1 + n_flags
+        empty = torch.iinfo(torch.int64).max
+        keys = zb.depth_keys(depth, exact, scale, qmax - qoff, qoff).to(
+            torch.int64) * (1 << 32) + torch.arange(n, device=dev)
+        inside = (ids >= 0) & (ids < cells)
+        members = [inside] + [inside & f for f in flags]
+        idx_all = torch.cat([q * cells + ids.clamp(0, cells - 1)
+                             for q in range(nq)])
+        key_all = torch.cat([torch.where(m, keys, empty) for m in members])
+        table = torch.full((nq * cells,), empty, dtype=torch.int64,
+                           device=dev)
+        lib_ms, _ = time_ms(lambda: table.scatter_reduce_(
+            0, idx_all, key_all, "amin", include_self=True), 200)
+        once = torch.full_like(table, empty)
+        once.scatter_reduce_(0, idx_all, key_all, "amin", include_self=True)
+        once = once.view(nq, cells)
+        lib_w = torch.where(once == empty, -1, once & 0xFFFFFFFF)
+        if not torch.equal(lib_w, w_k):
+            raise AssertionError(f"zbuffer {label}: the scatter_reduce_ "
+                                 "yardstick computes other winners")
+        nbytes = n * (8 + 4 + n_flags) + nq * cells * (8 + 4)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[zbuffer] {label}: {n} candidates -> {cells} cells x {nq} "
+              f"queries, winners exact ({filled} filled); kernel {ms:.4f} ms "
+              f"(eager calls {eager_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, "
+              f"bound {bound_ms * 1e3:.3f} us ({nbytes} B)")
+        out[label] = {"name": "zbuffer_cells", "route": "cuda",
+                      "source": "semantic_suma_tpu_torch/csrc/zbuffer.cu",
+                      "replaces": "semantic_suma_tpu/ops/zbuffer.py:84",
+                      "max_abs_err": float(err), "ms": ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes",
+                      "library_ms": lib_ms}
+    return out["fusion"]
+
+
+def _to(tree, dev):
+    """Copy a tensor, or a (named) tuple nesting tensors, to ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, copy=True)
+    if isinstance(tree, tuple):
+        items = [_to(x, dev) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    return tree
+
+
+def _small_angle(rel: torch.Tensor) -> float:
+    """Rotation angle of a near-identity transform from its antisymmetric
+    part (asin of |vee(R - R^T)| / 2): the trace formula's arccos cannot
+    resolve angles below ~1e-3 rad from f32 rotations."""
+    w = torch.stack([rel[2, 1] - rel[1, 2], rel[0, 2] - rel[2, 0],
+                     rel[1, 0] - rel[0, 1]])
+    return float(torch.asin(torch.clamp(torch.linalg.norm(w) / 2, max=1.0)))
+
+
+def phase_parity(dev, n_scans: int = 10):
+    """The card against the CPU on a small input: ``small()`` with the
+    bilateral filter on; each scan starts the CPU step (plain versions of
+    the kernels) from a copy of the card's state, and the two poses must
+    agree within 1e-3 m and 1e-3 rad (the tolerance the CPU tests hold the
+    port to against the JAX package)."""
+    from semantic_suma_tpu_torch.config import (LoopClosureConfig, MapConfig,
+                                                PreprocessConfig, SumaConfig)
+    from semantic_suma_tpu_torch.core.pipeline import init_state, odometry_step
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+
+    cfg = SumaConfig(map=MapConfig(spill_enabled=False),
+                     loop=LoopClosureConfig(enabled=False),
+                     preprocess=PreprocessConfig(use_filtered_vertexmap=True)
+                     ).small()
+    cpu = torch.device("cpu")
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n_scans, radius=18.0, step=1.5, device=dev)
+    state = init_state(cfg, dev)
+    worst_t = worst_r = 0.0
+    for i in range(n_scans):
+        ct = (1.0 - i / cfg.map.time_init) * cfg.map.log_unstable
+        s = render_scan(world, gt[i], cfg.data)
+        args = (s.points, s.labels, s.probs, s.valid)
+        cpu_state = _to(state, cpu)
+        state, info = odometry_step(state, *args, ct, cfg)
+        _, cinfo = odometry_step(cpu_state, *_to(args, cpu), ct, cfg)
+        pg = info.pose.cpu().double()
+        pc = cinfo.pose.double()
+        dt = float((pg[:3, 3] - pc[:3, 3]).abs().max())
+        dr = _small_angle(torch.linalg.inv(pc) @ pg)
+        worst_t, worst_r = max(worst_t, dt), max(worst_r, dr)
+        if not (dt <= 1e-3 and dr <= 1e-3):
+            raise AssertionError(f"scan {i}: card and CPU poses differ by "
+                                 f"{dt} m, {dr} rad")
+        if int(info.map_count) != int(cinfo.map_count):
+            print(f"[parity] scan {i}: map count card {int(info.map_count)}"
+                  f" CPU {int(cinfo.map_count)}")
+    print(f"[parity] {n_scans} scans at 32x180: card vs CPU per scan, max "
+          f"{worst_t:.3e} m, {worst_r:.3e} rad (limit 1e-3 each)")
+
+
+def _device_profile(slam, scans, ms_per_scan):
+    """Device time per scan by kernel name over ``scans`` more scans, from
+    ``torch.profiler``; the idle share compares the device's busy time per
+    scan with the un-profiled ``ms_per_scan`` of the timed window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in scans:
+            slam.process_scan(s.points, s.labels, s.probs, s.valid)
+        torch.cuda.synchronize()
+    # device-side rows only (kernels, copies, fills): the operator rows
+    # repeat the time of the kernels they launched
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    n = len(scans)
+    busy = sum(r[0] for r in rows) / n / 1e3
+    print(f"[profile] {n} scans: device busy {busy:.3f} ms/scan in "
+          f"{sum(r[1] for r in rows) / n:.0f} device launches/scan, of "
+          f"{ms_per_scan:.3f} ms/scan un-profiled -> idle share "
+          f"{1.0 - busy / ms_per_scan:.3f}")
+    for us, count, key in rows[:12]:
+        print(f"[profile]   {us / len(scans) / 1e3:8.3f} ms/scan "
+              f"{count / len(scans):7.1f} calls/scan  {key[:90]}")
+
+
+def phase_main_path(dev, profile_scans: int = 0):
+    from semantic_suma_tpu_torch.config import odometry_config
+    from semantic_suma_tpu_torch.core.pipeline import StageTimer, SurfelSLAM
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
+    from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
+    from semantic_suma_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = odometry_config()
+    n_warm, n_timed = 8, 60
+    n = n_warm + n_timed
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n + profile_scans, radius=18.0, step=1.5,
+                             device=dev)
+    scans = [render_scan(world, gt[i], cfg.data)
+             for i in range(n + profile_scans)]
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    slam = SurfelSLAM(cfg, device=dev)
+    bilateral_filter.launches = 0
+    zbuffer_cells.launches = 0
+    for i in range(n_warm):
+        s = scans[i]
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+    torch.cuda.synchronize()
+    slam.timer = StageTimer()
+    syncs0 = slam.syncs
+    t0 = time.perf_counter()
+    for i in range(n_warm, n):
+        s = scans[i]
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"bilateral_filter": bilateral_filter.launches,
+                "zbuffer_cells": zbuffer_cells.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    est = slam.trajectory()
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("non-finite poses")
+    ate = ate_rmse(gt[:n].cpu().numpy().astype(np.float64), est)
+    timed = slam.statistics[n_warm:]
+    iters = np.mean([s["icp-iterations"] for s in timed])
+    stages = slam.timer.summary()
+    print(f"[main] {n} scans {cfg.data.height}x{cfg.data.width} "
+          f"({n_warm} warm-up + {n_timed} timed): "
+          f"{n_timed / dt:.2f} scans/s, {dt / n_timed * 1e3:.2f} ms/scan "
+          f"(host clock, synchronous SurfelSLAM)")
+    print(f"[main] stages (CUDA events, mean ms/scan): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    print(f"[main] GN iterations/scan {iters:.2f}, host syncs/scan "
+          f"{(slam.syncs - syncs0) / n_timed:.2f}, track losses "
+          f"{slam.track_loss_count}, map surfels "
+          f"{slam.statistics[-1]['map-count']}, dropped creations "
+          f"{slam.creations_dropped}")
+    print(f"[main] aligned ATE {ate:.5f} m, peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    print(f"[main] launches: {launches}")
+    if launches["bilateral_filter"] != n:
+        raise AssertionError(f"bilateral ran {launches['bilateral_filter']} "
+                             f"times over {n} scans")
+    if launches["zbuffer_cells"] < 2 * n:
+        raise AssertionError(f"zbuffer ran {launches['zbuffer_cells']} "
+                             f"times over {n} scans")
+    if slam.creations_dropped:
+        raise AssertionError(f"{slam.creations_dropped} creations dropped")
+    if not ate <= 0.05:
+        raise AssertionError(f"ATE {ate} m > 0.05 m")
+    if profile_scans:
+        _device_profile(slam, scans[n:], dt / n_timed * 1e3)
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile-scans", type=int, default=0,
+                    help="after the main path, trace this many more scans "
+                         "with torch.profiler (device time by kernel)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    print(f"[device] {kind}, {torch.cuda.device_count()} visible, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    phase_build()
+    rec_a = phase_bilateral(dev)
+    rec_b = phase_zbuffer(dev)
+    phase_parity(dev)
+    launches = phase_main_path(dev, args.profile_scans)
+    rec_a["launches"] = launches["bilateral_filter"]
+    rec_b["launches"] = launches["zbuffer_cells"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in (rec_a, rec_b)]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

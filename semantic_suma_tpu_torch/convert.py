@@ -1,0 +1,76 @@
+"""Carry state across from the JAX package: the simulated world and the SLAM
+state, so both packages can start from the same mid-run map.
+
+Nothing here imports JAX: the inputs are duck-typed (a JAX ``World``'s boxes,
+or a JAX ``SlamState`` / ``MapState`` whose leaves were turned into numpy
+arrays, e.g. with ``jax.tree.map(np.asarray, state)``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import surfel_map as sm
+from .core.pipeline import SlamState
+from .device import resolve_device
+from .io.simulation import Box, World
+from .ops.icp import Maps
+
+
+def world_from_numpy(boxes, ground_z: float = -1.8,
+                     ground_label: int = 40) -> World:
+    """A port ``World`` from boxes with ``center``, ``size`` and ``label``
+    attributes (the JAX ``World.boxes``)."""
+    return World(boxes=tuple(
+        Box(tuple(float(c) for c in b.center), tuple(float(s) for s in b.size),
+            int(b.label)) for b in boxes),
+        ground_z=float(ground_z), ground_label=int(ground_label))
+
+
+def _t(x, device, dtype=None):
+    return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+
+def _packed(p, device) -> sm.PackedSurfels:
+    return sm.PackedSurfels(f=_t(p.f, device, torch.float32),
+                            i=_t(p.i, device, torch.int32))
+
+
+def maps_from_numpy(m, device=None) -> Maps:
+    """Port ``Maps`` from numpy-leaved JAX ``Maps``."""
+    device = resolve_device(device)
+    return Maps(vertex=_t(m.vertex, device, torch.float32),
+                normal=_t(m.normal, device, torch.float32),
+                vertex_valid=_t(m.vertex_valid, device, torch.bool),
+                normal_valid=_t(m.normal_valid, device, torch.bool),
+                sem_label=_t(m.sem_label, device, torch.int32),
+                sem_prob=_t(m.sem_prob, device, torch.float32))
+
+
+def map_state_from_numpy(m, device=None) -> sm.MapState:
+    dev = resolve_device(device)
+    return sm.MapState(
+        data=_packed(m.data, dev),
+        count=_t(m.count, dev, torch.int32),
+        poses=_t(m.poses, dev, torch.float32),
+        active_blocks=_t(m.active_blocks, dev, torch.int64),
+        active=_packed(m.active, dev),
+        active_count=_t(m.active_count, dev, torch.int32),
+        block_count=_t(m.block_count, dev, torch.int32),
+        anchor=_t(m.anchor, dev, torch.float32))
+
+
+def slam_state_from_numpy(state, device=None):
+    """A port ``SlamState`` from a numpy-leaved JAX ``SlamState``, or a port
+    ``MapState`` from a numpy-leaved JAX ``MapState``."""
+    dev = resolve_device(device)
+    if not hasattr(state, "map"):
+        return map_state_from_numpy(state, dev)
+    return SlamState(
+        map=map_state_from_numpy(state.map, dev),
+        pose=_t(state.pose, dev, torch.float32),
+        last_increment=_t(state.last_increment, dev, torch.float32),
+        last_maps=maps_from_numpy(state.last_maps, dev),
+        model_maps=maps_from_numpy(state.model_maps, dev),
+        timestamp=_t(state.timestamp, dev, torch.int32))
