@@ -3,16 +3,23 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the exit code is non-zero:
-  1. build every CUDA kernel of ``semantic_suma_tpu_torch/csrc`` with nvcc
-     for sm_90a (one process per source, in parallel);
+  1. build every CUDA source of ``semantic_suma_tpu_torch/csrc`` with nvcc
+     for sm_90a (one process per source, in parallel), then measure the
+     card's floors: the replayed-graph time of an empty kernel
+     (``launch_floor_ms``) and its rate of 64-bit atomics on distinct cells;
   2. kernel A (bilateral filter) against its plain PyTorch version at 64x900
      on a rendered scan and on a random map with invalid pixels on the wrap
-     columns and the top and bottom rows (rtol = atol = 2e-5);
+     columns and the top and bottom rows, at R = 6 (the unrolled
+     instantiation) and R = 3 (the generic one) (rtol = atol = 2e-5);
   3. kernel B (z-buffer) against its plain version at the projection shape
      (57,600 candidates into 57,600 cells) and the fusion shape (2^18
-     candidates, 2 flags), with forced depth ties, signed zeros, NaNs and
-     invalid ids, in the packed-key and the exact branch: winners must be
-     exactly equal;
+     candidates, 2 flags, one of them existence-only), with forced depth
+     ties, signed zeros, NaNs and invalid ids, in the packed-key and the
+     exact branch, with int64 and int32 ids, bool and uint8 flags, on
+     consecutive calls with different inputs on one key table, with no
+     candidate at all, and once more after CUDA-graph replays: winners,
+     winner depths and existence must be exactly equal and the key table
+     must be left empty;
   4. the card against the CPU on a small input: 10 scans at 32x180, each
      scan's CPU step (plain versions) started from a copy of the card's
      state; poses must agree within 1e-3 m and 1e-3 rad;
@@ -20,12 +27,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
      8 warm-up + 60 timed full-width scans of the synthetic world with the
      bilateral filter on; launch counters are zeroed just before it and read
      just after; asserts both kernels ran, no creation was dropped, and the
-     aligned ATE against ground truth is <= 0.05 m.
+     aligned ATE against ground truth is <= 0.05 m;
+  6. the package's default path once (``use_filtered_vertexmap=False``,
+     8 + 30 scans of the same world): finite poses, no dropped creation.
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last one ``{"ok": true, "device": {...}}`` line. Imports no JAX.
 
 Kernel times are device times: one call captured in a CUDA graph and
-replayed; the time of eager calls from Python is printed beside them.
+replayed; the time of eager calls from Python is printed beside them. A
+kernel's bound is the largest of the times its bytes, its arithmetic and
+(kernel A) its exponentials or (kernel B) its unavoidable atomics need at
+the card's peak rates; every one of them lies under ``launch_floor_ms``.
 ``--profile-scans N`` traces N more scans after the main path with
 ``torch.profiler`` and prints the device time by kernel and the idle share.
 """
@@ -44,6 +56,8 @@ import torch
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+SMS = 132
+SFU_PER_SM_PER_CLOCK = 16   # exp2, rsqrt, ...: results per SM per clock
 
 
 def _events_ms(fn, iters: int, warmup: int) -> float:
@@ -61,16 +75,30 @@ def _events_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int, warmup: int = 3):
-    """(device ms, eager ms) per call. The device time replays one call
-    captured in a CUDA graph, so the host's Python, ctypes and allocation
-    work between calls is out of it; the eager time is back-to-back calls
-    from Python, which bounds a caller when the host is the slower side."""
-    eager = _events_ms(fn, iters, warmup)
+def graph_ms(fn, iters: int, calls: int = 1) -> float:
+    """Device ms per call: ``calls`` calls captured in one CUDA graph and
+    replayed, so the host's Python, ctypes and allocation work between
+    calls is out of it."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return _events_ms(graph.replay, iters, 1), eager
+        for _ in range(calls):
+            fn()
+    return _events_ms(graph.replay, iters, 10) / calls
+
+
+def time_ms(fn, iters: int, warmup: int = 3):
+    """(device ms, eager ms) per call: one call in a replayed graph, and
+    back-to-back calls from Python, which bounds a caller when the host is
+    the slower side."""
+    eager = _events_ms(fn, iters, warmup)
+    return graph_ms(fn, iters), eager
+
+
+def _smi(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -89,6 +117,48 @@ def phase_build():
     return dt
 
 
+def phase_floors(dev):
+    """The card's floors under the kernels' bounds: the replayed-graph time
+    of an empty kernel, and the rate of 64-bit atomicMin on distinct,
+    neighbouring cells of a table that fits L2 (2^22 cells, four calls a
+    graph so that the launch floor is out of it)."""
+    import ctypes
+
+    from semantic_suma_tpu_torch.ops import cuda_build
+    lib = cuda_build.library("probes")
+    p = ctypes.c_void_p
+    lib.empty_launch.argtypes = [p]
+    lib.atomic_probe.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, p]
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def empty():
+        cuda_build.check(lib.empty_launch(stream()), "empty_launch")
+
+    floor_ms, eager_ms = time_ms(empty, 2000)
+    n = 1 << 22
+    cells = torch.full((n,), torch.iinfo(torch.int64).max, dtype=torch.int64,
+                       device=dev)
+
+    def probe():
+        cuda_build.check(lib.atomic_probe(cells.data_ptr(), n, 0, stream()),
+                         "atomic_probe")
+
+    probe()
+    torch.cuda.synchronize()
+    if not torch.equal(cells, torch.arange(n, device=dev)):
+        raise AssertionError("atomic probe wrote other keys than offered")
+    atomics_per_s = n / (graph_ms(probe, 200, calls=4) * 1e-3)
+    sm_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
+    print(f"[floor] launch_floor_ms {floor_ms:.5f} (one empty kernel in a "
+          f"replayed graph; eager from Python {eager_ms:.5f}); 64-bit "
+          f"atomicMin on distinct cells {atomics_per_s / 1e9:.1f} G/s; "
+          f"SM clock (max) {sm_hz / 1e6:.0f} MHz")
+    return {"launch_floor_ms": floor_ms, "atomics_per_s": atomics_per_s,
+            "sm_hz": sm_hz}
+
+
 def _needed_taps(valid: torch.Tensor, radius: int) -> int:
     """(valid pixel, valid neighbour) pairs of the (2R+1)^2 window: columns
     wrap, rows outside the image are dropped."""
@@ -103,7 +173,7 @@ def _needed_taps(valid: torch.Tensor, radius: int) -> int:
     return int(total)
 
 
-def phase_bilateral(dev):
+def phase_bilateral(dev, floors):
     from semantic_suma_tpu_torch.config import DataConfig
     from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
                                                        default_world,
@@ -128,38 +198,47 @@ def phase_bilateral(dev):
               ("random", torch.from_numpy(rand_v).to(dev),
                torch.from_numpy(rand_ok).to(dev))]
     sig_s, sig_r = 0.5 * 9.0, 2.5  # preprocess_scan's sigmas
+    # R = 6 is the unrolled instantiation the path runs, R = 3 the generic
+    # one. rtol = atol = 2e-5: the kernel's approximate exp2 and FMAs differ
+    # from the plain version's expf by ~1e-6 relative
     err = 0.0
-    for name, vm, vv in inputs:
-        got = bilateral_filter(vm, vv, sig_s, sig_r)
-        want = bilateral_filter_plain(vm, vv, sig_s, sig_r)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-        e = float((got - want).abs().max())
-        err = max(err, e)
-        print(f"[bilateral] {name}: max |kernel - plain| = {e:.3e} "
-              f"(valid {int(vv.sum())}/{h * w})")
+    for radius in (6, 3):
+        for name, vm, vv in inputs:
+            got = bilateral_filter(vm, vv, sig_s, sig_r, radius)
+            want = bilateral_filter_plain(vm, vv, sig_s, sig_r, radius)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            print(f"[bilateral] R={radius} {name}: max |kernel - plain| = "
+                  f"{e:.3e} (valid {int(vv.sum())}/{h * w})")
     vm, vv = inputs[0][1], inputs[0][2]
     ms, eager_ms = time_ms(lambda: bilateral_filter(vm, vv, sig_s, sig_r),
-                           200)
+                           2000)
     plain_ms, _ = time_ms(
         lambda: bilateral_filter_plain(vm, vv, sig_s, sig_r), 5, warmup=1)
-    # bytes: vertex read (12 B), valid read (1 B), output written (12 B);
-    # operations: ~8 fp32 operations (exp counted as one) for each tap that
-    # a valid pixel takes from a valid neighbour, counted on this scan
+    # the work of the function on this scan: vertex read (12 B), valid read
+    # (1 B), output written (12 B); for each tap that a valid pixel takes
+    # from a valid neighbour ~8 fp32 operations and one exponential, which
+    # the special-function units retire at 16 per SM per clock
     taps = _needed_taps(vv, 6)
-    bytes_ms = h * w * (12 + 1 + 12) / HBM_BYTES_PER_S * 1e3
-    ops_ms = taps * 8 / FP32_FLOP_PER_S * 1e3
-    print(f"[bilateral] kernel {ms:.4f} ms (eager calls {eager_ms:.4f} ms), "
-          f"plain {plain_ms:.3f} ms, bound "
-          f"{max(bytes_ms, ops_ms) * 1e3:.3f} us (bytes {bytes_ms * 1e3:.3f} "
-          f"us, fp32 ops {ops_ms * 1e3:.3f} us over {taps} valid taps)")
+    terms = {"bytes": h * w * (12 + 1 + 12) / HBM_BYTES_PER_S * 1e3,
+             "fp32": taps * 8 / FP32_FLOP_PER_S * 1e3,
+             "exp": taps / (SMS * SFU_PER_SM_PER_CLOCK * floors["sm_hz"])
+             * 1e3}
+    bound_ms = max(terms.values())
+    print(f"[bilateral] kernel {ms:.5f} ms (eager calls {eager_ms:.5f} ms), "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ("
+          + ", ".join(f"{k} {v:.5f}" for k, v in terms.items())
+          + f" over {taps} valid taps), launch floor "
+          f"{floors['launch_floor_ms']:.5f} ms")
     return {"name": "bilateral_filter", "route": "cuda",
             "source": "semantic_suma_tpu_torch/csrc/bilateral.cu",
             "replaces": "semantic_suma_tpu/ops/pallas_kernels.py:84",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms == terms["bytes"]
+            else "operations", "library_ms": None}
 
 
 def _zb_inputs(n, cells, n_flags, seed, dev):
@@ -177,40 +256,111 @@ def _zb_inputs(n, cells, n_flags, seed, dev):
             flags)
 
 
-def phase_zbuffer(dev):
+def _same(got, want) -> bool:
+    """Winners equal and winner depths equal bit for bit (NaNs included)."""
+    return torch.equal(got[0], want[0]) and torch.equal(
+        got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def _zb_err(got, want) -> float:
+    """Largest |kernel - plain| over the winners and over the winner depths
+    that are finite in both (the rest compare by their bits in ``_same``)."""
+    both = torch.isfinite(got[1]) & torch.isfinite(want[1])
+    return max(float((got[0] - want[0]).abs().max()),
+               float(torch.where(both, got[1] - want[1], 0.0).abs().max()))
+
+
+def _device_launches(fn) -> int:
+    """Kernels, copies and fills that one call of ``fn`` puts on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def phase_zbuffer(dev, floors):
     from semantic_suma_tpu_torch.ops import zbuffer as zb
 
     cells = 64 * 900
-    out = {}
-    for label, n, n_flags, qoff in (("projection", cells, 0, 0),
-                                    ("fusion", 1 << 18, 2, 1)):
+    empty = torch.iinfo(torch.int64).max
+    out = []
+    # the two shapes of the main path: project_scan (no flag) and fusion (the
+    # render flag with its winner, the compatible flag for existence only)
+    for label, n, payloads, qoff in (("projection", cells, (), 0),
+                                     ("fusion", 1 << 18, (True, False), 1)):
+        n_flags = len(payloads)
+        nq = 1 + n_flags
         ids, depth, flags = _zb_inputs(n, cells, n_flags, 7 + n_flags, dev)
+        ids2, depth2, flags2 = _zb_inputs(n, cells, n_flags, 70 + n_flags,
+                                          dev)
         exact, scale, qmax = zb._quantization(cells, 100.0)
-        kw = dict(exact=exact, scale=scale, qclip=qmax - qoff, qoff=qoff)
-        # the packed keys of the path, then the exact (two-key) branch at
-        # the same shape
-        err = 0
-        for kwi in (kw, dict(exact=True, scale=1.0, qclip=0, qoff=0)):
-            w_k, d_k = zb.zbuffer_cells(ids, depth, flags, cells, **kwi)
-            w_p, d_p = zb.zbuffer_cells_plain(ids, depth, flags, cells, **kwi)
-            torch.cuda.synchronize()
-            err = max(err, int((w_k - w_p).abs().max()),
-                      int((d_k - d_p).abs().max()))
-            if not (torch.equal(w_k, w_p) and torch.equal(d_k, d_p)):
-                bad = int((w_k != w_p).sum())
-                raise AssertionError(f"zbuffer {label} (exact="
-                                     f"{kwi['exact']}): {bad} winners differ")
-        w_k, _ = zb.zbuffer_cells(ids, depth, flags, cells, **kw)
-        filled = int((w_k[0] >= 0).sum())
-        ms, eager_ms = time_ms(
-            lambda: zb.zbuffer_cells(ids, depth, flags, cells, **kw), 200)
-        plain_ms, _ = time_ms(
-            lambda: zb.zbuffer_cells_plain(ids, depth, flags, cells, **kw), 50)
+        packed = dict(exact=exact, scale=scale, qclip=qmax - qoff, qoff=qoff)
+        two_key = dict(exact=True, scale=1.0, qclip=0, qoff=0)
+        as_u8 = tuple(f.to(torch.uint8) for f in flags)
+        none = (ids[:0], depth[:0], tuple(f[:0] for f in flags))
+        checks, err = 0, 0.0
+        for kw in (packed, two_key):
+            # consecutive calls on one key table: other inputs, other types,
+            # every flag with its winner, no candidate at all
+            for args, pl in (((ids, depth, flags), payloads),
+                             ((ids2, depth2, flags2), payloads),
+                             ((ids.to(torch.int32), depth, flags), payloads),
+                             ((ids, depth, as_u8), payloads),
+                             ((ids2, depth2, flags2), (True,) * n_flags),
+                             (none, payloads),
+                             ((ids, depth, flags), payloads)):
+                got = zb.zbuffer_cells(*args, cells, payloads=pl, **kw)
+                want = zb.zbuffer_cells_plain(*args, cells, payloads=pl, **kw)
+                torch.cuda.synchronize()
+                err = max(err, _zb_err(got, want))
+                if not _same(got, want):
+                    bad = int((got[0] != want[0]).sum())
+                    raise AssertionError(
+                        f"zbuffer {label} (exact={kw['exact']}, check "
+                        f"{checks}): {bad} winners differ")
+                checks += 1
+        if n_flags and not bool(((got[0][2] == 0) | (got[0][2] == -1)).all()):
+            raise AssertionError("existence-only flag reports a winner")
+
+        def fn():
+            return zb.zbuffer_cells(ids, depth, flags, cells,
+                                    payloads=payloads, **packed)
+
+        want = zb.zbuffer_cells_plain(ids, depth, flags, cells,
+                                      payloads=payloads, **packed)
+        filled = [int((want[0][q] >= 0).sum()) for q in range(nq)]
+        ms, eager_ms = time_ms(fn, 2000)
+        # after the replays: a table that the decode pass left dirty shows
+        # here and nowhere else
+        table = zb._tables[(ids.device, nq * cells)]
+        torch.cuda.synchronize()
+        got = fn()
+        err = max(err, _zb_err(got, want))
+        if not bool((table == empty).all()) or not _same(got, want):
+            raise AssertionError(f"zbuffer {label}: wrong after graph "
+                                 "replays (key table left dirty)")
+        plain_ms, _ = time_ms(lambda: zb.zbuffer_cells_plain(
+            ids, depth, flags, cells, payloads=payloads, **packed), 50)
+        # the public function answers in two launches, no torch op beside
+        if n_flags:
+            per_call = _device_launches(lambda: zb.zbuffer_runs(
+                ids, depth, flags, cells, flag_payloads=payloads))
+        else:
+            per_call = _device_launches(
+                lambda: zb.zbuffer_argmin(ids, depth, cells))
+        if per_call > 2:
+            raise AssertionError(f"zbuffer {label}: {per_call} device "
+                                 "launches for one answer")
         # the yardstick: ONE scatter_reduce_ (amin) over the same keys for
         # every query at once, each query's cells in its own slice of one
         # table; a non-member carries the empty key, which changes no cell
-        nq = 1 + n_flags
-        empty = torch.iinfo(torch.int64).max
         keys = zb.depth_keys(depth, exact, scale, qmax - qoff, qoff).to(
             torch.int64) * (1 << 32) + torch.arange(n, device=dev)
         inside = (ids >= 0) & (ids < cells)
@@ -218,32 +368,46 @@ def phase_zbuffer(dev):
         idx_all = torch.cat([q * cells + ids.clamp(0, cells - 1)
                              for q in range(nq)])
         key_all = torch.cat([torch.where(m, keys, empty) for m in members])
-        table = torch.full((nq * cells,), empty, dtype=torch.int64,
-                           device=dev)
-        lib_ms, _ = time_ms(lambda: table.scatter_reduce_(
+        lib_table = torch.full((nq * cells,), empty, dtype=torch.int64,
+                               device=dev)
+        lib_ms, _ = time_ms(lambda: lib_table.scatter_reduce_(
             0, idx_all, key_all, "amin", include_self=True), 200)
-        once = torch.full_like(table, empty)
-        once.scatter_reduce_(0, idx_all, key_all, "amin", include_self=True)
-        once = once.view(nq, cells)
-        lib_w = torch.where(once == empty, -1, once & 0xFFFFFFFF)
-        if not torch.equal(lib_w, w_k):
+        lib_w = torch.where(lib_table == empty, -1,
+                            lib_table & 0xFFFFFFFF).view(nq, cells)
+        lib_ok = [q == 0 or payloads[q - 1] for q in range(nq)]
+        if not all(torch.equal(lib_w[q], want[0][q])
+                   for q in range(nq) if lib_ok[q]):
             raise AssertionError(f"zbuffer {label}: the scatter_reduce_ "
                                  "yardstick computes other winners")
-        nbytes = n * (8 + 4 + n_flags) + nq * cells * (8 + 4)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the work of the function on these inputs: every input read once,
+        # every output written once; and one atomic for every non-empty cell
+        # of a query that wants its winner, which no atomic design avoids, at
+        # the card's measured rate on distinct cells
+        nbytes = n * (ids.element_size() + 4 + n_flags) + nq * cells * (8 + 4)
+        atomics = sum(f for q, f in enumerate(filled) if lib_ok[q])
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "atomics": atomics / floors["atomics_per_s"] * 1e3}
+        bound_ms = max(terms.values())
         print(f"[zbuffer] {label}: {n} candidates -> {cells} cells x {nq} "
-              f"queries, winners exact ({filled} filled); kernel {ms:.4f} ms "
-              f"(eager calls {eager_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, "
-              f"bound {bound_ms * 1e3:.3f} us ({nbytes} B)")
-        out[label] = {"name": "zbuffer_cells", "route": "cuda",
-                      "source": "semantic_suma_tpu_torch/csrc/zbuffer.cu",
-                      "replaces": "semantic_suma_tpu/ops/zbuffer.py:84",
-                      "max_abs_err": float(err), "ms": ms,
-                      "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": "bytes",
-                      "library_ms": lib_ms}
-    return out["fusion"]
+              f"queries, {checks} comparisons exact (winners, depths, "
+              f"existence; max |kernel - plain| {err}; {filled} filled), "
+              f"{per_call} device launches a "
+              f"call; kernel {ms:.5f} ms (eager calls "
+              f"{eager_ms:.5f} ms), plain {plain_ms:.4f} ms, scatter_reduce_ "
+              f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms (bytes "
+              f"{terms['bytes']:.5f} for {nbytes} B, atomics "
+              f"{terms['atomics']:.5f} for {atomics}), launch floor "
+              f"{floors['launch_floor_ms']:.5f} ms")
+        out.append({"name": "zbuffer_cells", "shape": label, "route": "cuda",
+                    "source": "semantic_suma_tpu_torch/csrc/zbuffer.cu",
+                    "replaces": "semantic_suma_tpu/ops/zbuffer.py:"
+                    + ("84" if n_flags else "24"),
+                    "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if bound_ms == terms["bytes"]
+                    else "operations", "library_ms": lib_ms,
+                    "n_flags": n_flags})
+    return out
 
 
 def _to(tree, dev):
@@ -364,6 +528,7 @@ def phase_main_path(dev, profile_scans: int = 0):
     slam = SurfelSLAM(cfg, device=dev)
     bilateral_filter.launches = 0
     zbuffer_cells.launches = 0
+    zbuffer_cells.launches_by_flags = [0, 0, 0, 0]
     for i in range(n_warm):
         s = scans[i]
         slam.process_scan(s.points, s.labels, s.probs, s.valid)
@@ -377,7 +542,9 @@ def phase_main_path(dev, profile_scans: int = 0):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"bilateral_filter": bilateral_filter.launches,
-                "zbuffer_cells": zbuffer_cells.launches}
+                "zbuffer_cells": zbuffer_cells.launches,
+                "zbuffer_cells_by_flags":
+                    list(zbuffer_cells.launches_by_flags)}
     peak = torch.cuda.max_memory_allocated()
 
     est = slam.trajectory()
@@ -386,6 +553,8 @@ def phase_main_path(dev, profile_scans: int = 0):
     ate = ate_rmse(gt[:n].cpu().numpy().astype(np.float64), est)
     timed = slam.statistics[n_warm:]
     iters = np.mean([s["icp-iterations"] for s in timed])
+    capped = [i for i, s in enumerate(slam.statistics)
+              if s["icp-iterations"] >= cfg.icp.max_iterations]
     stages = slam.timer.summary()
     print(f"[main] {n} scans {cfg.data.height}x{cfg.data.width} "
           f"({n_warm} warm-up + {n_timed} timed): "
@@ -393,7 +562,9 @@ def phase_main_path(dev, profile_scans: int = 0):
           f"(host clock, synchronous SurfelSLAM)")
     print(f"[main] stages (CUDA events, mean ms/scan): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    print(f"[main] GN iterations/scan {iters:.2f}, host syncs/scan "
+    print(f"[main] GN iterations/scan {iters:.2f} ({len(capped)} of {n} scans "
+          f"at the cap of {cfg.icp.max_iterations}: {capped}), host "
+          f"syncs/scan "
           f"{(slam.syncs - syncs0) / n_timed:.2f}, track losses "
           f"{slam.track_loss_count}, map surfels "
           f"{slam.statistics[-1]['map-count']}, dropped creations "
@@ -404,9 +575,12 @@ def phase_main_path(dev, profile_scans: int = 0):
     if launches["bilateral_filter"] != n:
         raise AssertionError(f"bilateral ran {launches['bilateral_filter']} "
                              f"times over {n} scans")
-    if launches["zbuffer_cells"] < 2 * n:
+    by_flags = launches["zbuffer_cells_by_flags"]
+    if launches["zbuffer_cells"] < 2 * n or by_flags[0] < n \
+            or by_flags[2] < n:
         raise AssertionError(f"zbuffer ran {launches['zbuffer_cells']} "
-                             f"times over {n} scans")
+                             f"times ({by_flags} by flag count) over {n} "
+                             "scans")
     if slam.creations_dropped:
         raise AssertionError(f"{slam.creations_dropped} creations dropped")
     if not ate <= 0.05:
@@ -414,6 +588,48 @@ def phase_main_path(dev, profile_scans: int = 0):
     if profile_scans:
         _device_profile(slam, scans[n:], dt / n_timed * 1e3)
     return launches
+
+
+def phase_default_path(dev):
+    """The package's default preprocessing (no bilateral filter) once on
+    the card, on the main path's world: 8 warm-up + 30 timed scans."""
+    import dataclasses
+
+    from semantic_suma_tpu_torch.config import odometry_config
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    from semantic_suma_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = odometry_config()
+    cfg = cfg.replace(preprocess=dataclasses.replace(
+        cfg.preprocess, use_filtered_vertexmap=False))
+    n_warm, n_timed = 8, 30
+    n = n_warm + n_timed
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n, radius=18.0, step=1.5, device=dev)
+    scans = [render_scan(world, gt[i], cfg.data) for i in range(n)]
+    slam = SurfelSLAM(cfg, device=dev)
+    for i in range(n):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        s = scans[i]
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    est = slam.trajectory()
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("default path: non-finite poses")
+    if slam.creations_dropped:
+        raise AssertionError(f"default path: {slam.creations_dropped} "
+                             "creations dropped")
+    ate = ate_rmse(gt.cpu().numpy().astype(np.float64), est)
+    print(f"[default] use_filtered_vertexmap=False, {n} scans ({n_warm} "
+          f"warm-up + {n_timed} timed): {n_timed / dt:.2f} scans/s, "
+          f"{dt / n_timed * 1e3:.2f} ms/scan, aligned ATE {ate:.5f} m, map "
+          f"surfels {slam.statistics[-1]['map-count']}, dropped creations 0")
 
 
 def main() -> int:
@@ -430,21 +646,21 @@ def main() -> int:
     print(f"[device] {kind}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
-    rec_a = phase_bilateral(dev)
-    rec_b = phase_zbuffer(dev)
+    floors = phase_floors(dev)
+    rec_a = phase_bilateral(dev, floors)
+    recs_b = phase_zbuffer(dev, floors)
     phase_parity(dev)
     launches = phase_main_path(dev, args.profile_scans)
+    phase_default_path(dev)
     rec_a["launches"] = launches["bilateral_filter"]
-    rec_b["launches"] = launches["zbuffer_cells"]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (rec_a, rec_b)]}))
+    for rec in recs_b:
+        rec["launches"] = launches["zbuffer_cells_by_flags"][rec["n_flags"]]
+    print(_smi("name,power.limit"))
+    keys = ("name", "shape", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in (rec_a, *recs_b)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@
 // Replaces the XLA sort formulations of semantic_suma_tpu/ops/zbuffer.py
 // (zbuffer_argmin and zbuffer_runs). A TPU has no atomic scatter, so the JAX
 // package sorts (cell, quantized depth, index) keys and reads the head of each
-// cell's run. Hopper has 64-bit atomics, so each query is one atomicMin per
-// candidate on a table of 64-bit cells keyed
+// cell's run. Hopper has 64-bit atomics, so each query is an atomicMin on a
+// table of 64-bit cells keyed
 //
 //     key = depth_key * 2^32 + candidate_index
 //
@@ -22,11 +22,37 @@
 // go to the lowest index.
 //
 // Bound on an H100 SXM at the fusion shape (2^18 candidates, 57,600 cells,
-// 2 flags): bytes = 2^18 x (8 B id + 4 B depth + 2 B flags) + 3 x 57,600 x
-// (8 B winner + 4 B depth key) = 5.7 MB, 1.7 us at 3.35 TB/s; the arithmetic is
-// a few integer ops per candidate. The atomics on a 1.4 MB table stay in L2.
+// 2 flags, one of them existence-only): bytes = 2^18 x (4 or 8 B id + 4 B
+// depth + 2 B flags) + 3 x 57,600 x (8 B winner + 4 B depth), ~1.7 us at
+// 3.35 TB/s; atomics = one per non-empty cell of every query that needs its
+// winner, which no atomic design avoids, at the card's rate for 64-bit atomics
+// on distinct cells. Both lie under the cost of one launch (~5 us for a
+// replayed graph of one empty kernel), and the answer takes two.
+//
+// Design, against that bound:
+//  * Two launches, none to fill. The key table is a workspace that the caller
+//    keeps filled with the empty key. scatter_kernel lowers it; decode_kernel
+//    reads each cell, writes the empty key back where it was lowered, and
+//    writes the finished answer: winner (-1 = none) and winner depth (+inf =
+//    none; depth[winner] for query 0 and in the exact branch, the bucket floor
+//    (key - qoff) / scale, correctly rounded, for a flag in the packed branch),
+//    so nothing runs after it. A table may serve one stream at a time.
+//  * A flag of which only existence is wanted issues no atomic: a plain store
+//    of key 0 into its cell, a benign race of equal values; decode reports
+//    winner 0 and depth 0.
+//  * Inputs as they come: int32 or int64 ids, up to three one-byte flag arrays
+//    by pointer; outputs int64 winners and f32 depths, the types the callers
+//    index and compare with.
+//  * Tried on the card and not kept (times in PERF.md): looking before the
+//    atomic, i.e. reading the cell and skipping the atomicMin when it already
+//    holds a smaller key, is slower at both shapes (1.5x at the fusion shape):
+//    the atomic returns nothing, so the thread never waits for it, while the
+//    look is a round trip to L2 that it does wait for. One cooperative launch
+//    with a grid-wide barrier between the passes is slower at both shapes too
+//    (~20% at the fusion shape).
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -34,89 +60,120 @@ namespace {
 constexpr long long kEmpty = 0x7fffffffffffffffLL;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int depth_key(float d, int exact, float scale,
-                                         int qclip, int qoff) {
-  if (exact) {
+struct Query {
+  const float* depth;
+  const uint8_t* flag[3];
+  int n, num_flags, payload_mask;  // bit k: flag k wants its winner
+  long long num_cells;
+  int exact;
+  float scale;
+  int qclip, qoff;
+};
+
+__device__ __forceinline__ int depth_key(float d, const Query& q) {
+  if (q.exact) {
     if (d == 0.f) d = 0.f;                        // -0 sorts as +0
     if (d != d) d = __int_as_float(0x7fc00000);   // one NaN, sorted last
     const int b = __float_as_int(d);
     return b < 0 ? (b ^ 0x7fffffff) : b;
   }
-  const float s = d * scale;
-  int q;
+  const float s = __fmul_rn(d, q.scale);
+  int k;
   if (!(s > 0.f)) {
-    q = 0;  // negatives and NaN truncate into bucket 0
-  } else if (s >= (float)qclip) {
-    q = qclip;
+    k = 0;  // negatives and NaN truncate into bucket 0
+  } else if (s >= (float)q.qclip) {
+    k = q.qclip;
   } else {
-    q = (int)s;
+    k = (int)s;
   }
-  return q + qoff;
+  return k + q.qoff;
 }
 
-__global__ void fill_kernel(long long* cells, long long total) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < total) cells[j] = kEmpty;
-}
-
-__global__ void scatter_kernel(const long long* __restrict__ ids,
-                               const float* __restrict__ depth,
-                               const uint8_t* __restrict__ flags, int n,
-                               int num_flags, long long num_cells, int exact,
-                               float scale, int qclip, int qoff,
-                               long long* __restrict__ cells) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+template <typename IdT>
+__global__ void __launch_bounds__(kThreads)
+    scatter_kernel(const IdT* __restrict__ ids, Query q,
+                   long long* __restrict__ table) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= q.n) return;
   const long long id = ids[i];
-  if (id < 0 || id >= num_cells) return;
+  if (id < 0 || id >= q.num_cells) return;
   const long long key =
-      (long long)depth_key(depth[i], exact, scale, qclip, qoff) * 4294967296LL + i;
-  atomicMin(cells + id, key);
-  for (int k = 0; k < num_flags; ++k) {
-    if (flags[(size_t)k * n + i]) atomicMin(cells + (k + 1) * num_cells + id, key);
+      (long long)depth_key(q.depth[i], q) * 4294967296LL + i;
+  atomicMin(table + id, key);
+  for (int k = 0; k < q.num_flags; ++k) {
+    if (!q.flag[k][i]) continue;
+    long long* cell = table + (k + 1) * q.num_cells + id;
+    if ((q.payload_mask >> k) & 1) {
+      atomicMin(cell, key);
+    } else {
+      *cell = 0;  // existence only: no atomic
+    }
   }
 }
 
-__global__ void decode_kernel(const long long* __restrict__ cells,
-                              long long total, long long* __restrict__ winner,
-                              int* __restrict__ dkey) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= total) return;
-  const long long key = cells[j];
-  if (key == kEmpty) {
-    winner[j] = -1;
-    dkey[j] = 0;
-  } else {
-    winner[j] = key & 0xffffffffLL;
-    dkey[j] = (int)(key >> 32);
+// Cell j of every query: the finished answer out, the empty key back in.
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel(Query q, long long* __restrict__ table,
+                  long long* __restrict__ winner, float* __restrict__ wdepth) {
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (j >= q.num_cells) return;
+  for (int k = 0; k <= q.num_flags; ++k) {
+    const long long off = k * q.num_cells + j;
+    const long long key = __ldcg(table + off);  // L2: where the atomics land
+    long long w = -1;
+    float d = CUDART_INF_F;
+    if (key != kEmpty) {
+      table[off] = kEmpty;
+      if (k > 0 && !((q.payload_mask >> (k - 1)) & 1)) {
+        w = 0;
+        d = 0.f;
+      } else {
+        w = key & 0xffffffffLL;
+        d = (k == 0 || q.exact)
+                ? q.depth[w]
+                : __fdiv_rn(__int2float_rn((int)(key >> 32) - q.qoff), q.scale);
+      }
+    }
+    winner[off] = w;
+    wdepth[off] = d;
   }
+}
+
+template <typename IdT>
+int run(const void* ids, const Query& q, long long* table, long long* winner,
+        float* wdepth, cudaStream_t stream) {
+  if (q.n > 0) {
+    const int gcand = (q.n + kThreads - 1) / kThreads;
+    scatter_kernel<IdT><<<gcand, kThreads, 0, stream>>>(
+        static_cast<const IdT*>(ids), q, table);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  const int gcells = (int)((q.num_cells + kThreads - 1) / kThreads);
+  decode_kernel<<<gcells, kThreads, 0, stream>>>(q, table, winner, wdepth);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ids i64[n], depth f32[n], flags u8[num_flags, n] (may be null when
-// num_flags == 0); scratch cells i64[(1 + num_flags) * num_cells]; outputs
-// winner i64[(1 + num_flags) * num_cells] (-1 = empty) and dkey
-// i32[(1 + num_flags) * num_cells] (the winner's depth key). Launches three
-// kernels on `stream`; returns the first non-zero cudaGetLastError().
-extern "C" int zbuffer_cells(const long long* ids, const float* depth,
-                             const uint8_t* flags, int n, int num_flags,
-                             long long num_cells, int exact, float scale,
-                             int qclip, int qoff, long long* cells,
-                             long long* winner, int* dkey,
-                             cudaStream_t stream) {
-  const long long total = (long long)(1 + num_flags) * num_cells;
-  const int gcells = (int)((total + kThreads - 1) / kThreads);
-  fill_kernel<<<gcells, kThreads, 0, stream>>>(cells, total);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  if (n > 0) {
-    scatter_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        ids, depth, flags, n, num_flags, num_cells, exact, scale, qclip, qoff,
-        cells);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
-  decode_kernel<<<gcells, kThreads, 0, stream>>>(cells, total, winner, dkey);
-  return (int)cudaGetLastError();
+// ids i32[n] or i64[n] (ids_i64), depth f32[n], flag0..2 u8[n] (non-zero =
+// set; null beyond num_flags); payload_mask bit k set when flag k wants its
+// winner and depth, clear when only existence. table i64[(1 + num_flags) *
+// num_cells] holds the empty key (INT64_MAX) in every cell on entry and again
+// when the launches have run. Outputs winner i64 and wdepth f32, both
+// [(1 + num_flags) * num_cells]. Two launches on `stream` (one when n = 0);
+// returns the first non-zero cudaGetLastError().
+extern "C" int zbuffer_cells(const void* ids, int ids_i64, const float* depth,
+                             const uint8_t* flag0, const uint8_t* flag1,
+                             const uint8_t* flag2, int n, int num_flags,
+                             int payload_mask, long long num_cells, int exact,
+                             float scale, int qclip, int qoff,
+                             long long* table, long long* winner,
+                             float* wdepth, cudaStream_t stream) {
+  if (num_flags < 0 || num_flags > 3 || num_cells <= 0 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  const Query q = {depth, {flag0, flag1, flag2}, n, num_flags, payload_mask,
+                   num_cells, exact, scale, qclip, qoff};
+  return ids_i64 ? run<long long>(ids, q, table, winner, wdepth, stream)
+                 : run<int>(ids, q, table, winner, wdepth, stream);
 }

@@ -30,14 +30,18 @@ def _lib():
     return lib
 
 
+_radius_fits: dict = {}  # radius -> its tile fits a block's shared memory
+
+
 def bilateral_filter(vertex_map: torch.Tensor, vertex_valid: torch.Tensor,
                      sigma_space: float = 4.5, sigma_range: float = 30.0,
                      radius: int = 6) -> torch.Tensor:
     """Range bilateral filter of a [H, W, 3] vertex map (same contract as
-    :func:`bilateral_filter_plain`)."""
+    :func:`bilateral_filter_plain`). On a CUDA tensor, radius 6 runs the
+    kernel's unrolled instantiation and any other radius its generic one."""
     if vertex_map.device.type == "cpu":
-        return bilateral_filter_plain(vertex_map, vertex_valid, sigma_space,
-                                      sigma_range, radius)
+        return bilateral_filter_plain(vertex_map, vertex_valid.to(torch.bool),
+                                      sigma_space, sigma_range, radius)
     if vertex_map.device.type != "cuda":
         raise ValueError(f"bilateral: unsupported device {vertex_map.device}")
     h, w = vertex_map.shape[:2]
@@ -46,10 +50,21 @@ def bilateral_filter(vertex_map: torch.Tensor, vertex_valid: torch.Tensor,
     if vertex_valid.device != vertex_map.device:
         raise ValueError("bilateral: vertex and valid on different devices")
     vm = vertex_map.to(torch.float32).contiguous()
-    vv = vertex_valid.to(torch.uint8).contiguous()
+    vv = vertex_valid.contiguous()
+    if vv.dtype == torch.bool:
+        vv = vv.view(torch.uint8)   # one byte each: no copy
+    elif vv.dtype != torch.uint8:
+        vv = (vv != 0).view(torch.uint8)
     lib = _lib()
-    if lib.bilateral_smem_bytes(radius) > 48 * 1024 or radius < 0:
-        raise ValueError(f"bilateral: radius {radius} does not fit a block")
+    fits = _radius_fits.get(radius)
+    if fits is None:
+        fits = _radius_fits[radius] = (
+            0 <= radius and lib.bilateral_smem_bytes(radius) <= 48 * 1024)
+    if not fits or w < radius:
+        raise ValueError(f"bilateral: radius {radius} does not fit a block "
+                         f"or exceeds the image width {w}")
+    if not sigma_range < 1e15:
+        raise ValueError("bilateral: sigma_range must be below 1e15")
     out = torch.empty_like(vm)
     ssf = -0.5 / (sigma_space * sigma_space)
     srf = -0.5 / (sigma_range * sigma_range)

@@ -25,12 +25,20 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("radius,sigma_range", [(3, 30.0), (6, 2.5)])
-def test_bilateral_plain_matches_pallas(radius, sigma_range):
+@pytest.mark.parametrize("radius,sigma_range,holes", [
+    (3, 30.0, False), (6, 2.5, False),
+    (3, 30.0, True), (6, 2.5, True), (6, 1e6, True)])
+def test_bilateral_plain_matches_pallas(radius, sigma_range, holes):
     rng = np.random.default_rng(3)
     h, w = 16, 128
     pts = rng.normal(size=(h, w, 3)).astype(np.float32) * 5 + 10
     valid = rng.uniform(size=(h, w)) < 0.9
+    if holes:
+        # half of the pixels invalid on the rows next to the outside and on
+        # the columns that wrap
+        for sl in ((0, slice(None)), (h - 1, slice(None)),
+                   (slice(None), 0), (slice(None), w - 1)):
+            valid[sl] = rng.uniform(size=valid[sl].shape) < 0.5
     # unjitted, so the sigmas stay Python constants of the Pallas kernel
     # (a jitted call would trace them, which the kernel does not accept)
     want = bilateral_filter_pallas.__wrapped__(
@@ -42,6 +50,15 @@ def test_bilateral_plain_matches_pallas(radius, sigma_range):
     # on a CPU tensor the kernel's wrapper runs the plain version
     assert torch.equal(bilateral_filter(_t(pts), _t(valid), 4.5, sigma_range,
                                         radius), got)
+
+
+def test_bilateral_takes_bool_or_uint8_validity():
+    rng = np.random.default_rng(8)
+    pts = rng.normal(size=(8, 64, 3)).astype(np.float32) * 5 + 10
+    valid = rng.uniform(size=(8, 64)) < 0.8
+    a = bilateral_filter(_t(pts), _t(valid), 4.5, 2.5, 3)
+    b = bilateral_filter(_t(pts), _t(valid.astype(np.uint8)), 4.5, 2.5, 3)
+    assert torch.equal(a, b)
 
 
 def _scan_maps():

@@ -71,6 +71,93 @@ def test_zbuffer_runs_matches_jax(n, cells, span):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+def _runs_kw(cells):
+    exact, scale, qmax = tzb._quantization(cells, 100.0)
+    return dict(exact=exact, scale=scale, qclip=max(qmax - 1, 0),
+                qoff=0 if exact else 1)
+
+
+# the widened kernel function (winners AND finished depths in one call), plain
+# version: exact against the JAX sorts, decoded depths bit for bit in float32
+@pytest.mark.parametrize("n,cells,span", [(5000, 4096, None),
+                                          (4000, 700, 40),
+                                          (6000, 1 << 20, None),
+                                          (6000, 1 << 20, 64)])
+def test_zbuffer_cells_plain_matches_jax(n, cells, span):
+    ids, depth, flags = _inputs(n, cells, seed=n + 2, span=span)
+    tflags = tuple(torch.from_numpy(f) for f in flags)
+    jw, jws, jds = jzb.zbuffer_runs(
+        jnp.asarray(ids), jnp.asarray(depth),
+        tuple(jnp.asarray(f) for f in flags), cells,
+        flag_payloads=(True, False))
+    w, d = tzb.zbuffer_cells_plain(
+        torch.from_numpy(ids), torch.from_numpy(depth), tflags, cells,
+        payloads=(True, False), **_runs_kw(cells))
+    assert w.dtype == torch.int64 and d.dtype == torch.float32
+    assert w.shape == d.shape == (3, cells)
+    np.testing.assert_array_equal(w[0].numpy(), np.asarray(jw))
+    for k in range(2):
+        np.testing.assert_array_equal(w[1 + k].numpy(), np.asarray(jws[k]))
+        np.testing.assert_array_equal(d[1 + k].numpy().view(np.int32),
+                                      np.asarray(jds[k]).view(np.int32))
+    # existence only: 0 / -1 and 0.0 / inf
+    assert set(np.unique(w[2].numpy())) <= {-1, 0}
+    np.testing.assert_array_equal(np.isinf(d[2].numpy()), w[2].numpy() < 0)
+    # query 0 carries the winner's own depth, as zbuffer_argmin reports it
+    exact, scale, qmax = tzb._quantization(cells, 100.0)
+    aw, ad = jzb.zbuffer_argmin(jnp.asarray(ids), jnp.asarray(depth), cells)
+    w0, d0 = tzb.zbuffer_cells_plain(
+        torch.from_numpy(ids), torch.from_numpy(depth), (), cells,
+        exact=exact, scale=scale, qclip=qmax, qoff=0)
+    np.testing.assert_array_equal(w0[0].numpy(), np.asarray(aw))
+    np.testing.assert_array_equal(d0[0].numpy().view(np.int32),
+                                  np.asarray(ad).view(np.int32))
+
+
+@pytest.mark.parametrize("cells", [4096, 1 << 20])
+def test_zbuffer_takes_int32_ids_and_bool_flags(cells):
+    ids, depth, flags = _inputs(5000, cells, seed=11, span=300)
+    d = torch.from_numpy(depth)
+    a = tzb.zbuffer_runs(torch.from_numpy(ids), d,
+                         tuple(torch.from_numpy(f) for f in flags), cells,
+                         flag_payloads=(True, False))
+    b = tzb.zbuffer_runs(torch.from_numpy(ids).long(), d,
+                         tuple(torch.from_numpy(f.astype(np.uint8))
+                               for f in flags), cells,
+                         flag_payloads=(True, False))
+    assert torch.equal(a[0], b[0]) and a[0].dtype == torch.int64
+    for x, y in zip(a[1] + a[2], b[1] + b[2]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    wa, da = tzb.zbuffer_argmin(torch.from_numpy(ids), d, cells)
+    wb, db = tzb.zbuffer_argmin(torch.from_numpy(ids).long(), d, cells)
+    assert torch.equal(wa, wb) and torch.equal(
+        da.view(torch.int32), db.view(torch.int32))
+
+
+@pytest.mark.parametrize("cells", [700, 1 << 20])
+def test_zbuffer_empty_input(cells):
+    ids = torch.zeros((0,), dtype=torch.int32)
+    depth = torch.zeros((0,), dtype=torch.float32)
+    flags = (torch.zeros((0,), dtype=torch.bool),) * 2
+    w, d = tzb.zbuffer_argmin(ids, depth, cells)
+    assert w.shape == d.shape == (cells,)
+    assert bool((w == -1).all()) and bool(torch.isinf(d).all())
+    w0, ws, ds = tzb.zbuffer_runs(ids, depth, flags, cells,
+                                  flag_payloads=(True, False))
+    assert bool((w0 == -1).all())
+    for a, b in zip(ws, ds):
+        assert a.shape == b.shape == (cells,) and a.dtype == torch.int64
+        assert bool((a == -1).all()) and bool(torch.isinf(b).all())
+    if cells == 700:
+        # the JAX exact branch gathers depth[0] and cannot take n = 0
+        jw0, jws, jds = jzb.zbuffer_runs(
+            jnp.zeros((0,), jnp.int32), jnp.zeros((0,), jnp.float32),
+            (jnp.zeros((0,), bool),) * 2, cells, flag_payloads=(True, False))
+        np.testing.assert_array_equal(w0.numpy(), np.asarray(jw0))
+        for a, b in zip(jws + jds, ws + ds):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
 def test_scatter_sum_and_gather_or():
     rng = np.random.default_rng(5)
     ids = rng.integers(-3, 40, size=200).astype(np.int32)
