@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the semantic surfel SLAM engine.
 
 A second implementation of ``semantic_suma_tpu`` for one NVIDIA H100: plain
-tensor code is PyTorch, and the kernels on the odometry path (the range-image
-bilateral filter and the per-pixel z-buffer) are hand-written CUDA C++ under
-``csrc/``, built at first use with ``nvcc`` for ``sm_90a``. The package never
-imports JAX; the JAX package stays the reference the tests hold it against.
+tensor code is PyTorch, and the kernels on the odometry and loop-closure paths
+(the range-image bilateral filter and the per-pixel z-buffer) are hand-written
+CUDA C++ under ``csrc/``, built at first use with ``nvcc`` for ``sm_90a``. The
+package never imports JAX; the JAX package stays the reference the tests hold
+it against.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version.
@@ -20,5 +21,5 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from .config import SumaConfig, odometry_config  # noqa: E402,F401
+from .config import SumaConfig, loop_config, odometry_config  # noqa: E402,F401
 from .device import resolve_device  # noqa: E402,F401

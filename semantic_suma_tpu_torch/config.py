@@ -112,8 +112,9 @@ class MapConfig:
 
 @dataclass(frozen=True)
 class LoopClosureConfig:
-    """Loop closure settings (loop closure itself is not ported yet; the
-    fields are kept so configurations compare equal across packages)."""
+    """Loop closure settings. The default gates target KITTI-scale
+    trajectories (200 m of travel before a revisit counts); a ~115 m
+    synthetic lap needs them shrunk, as :func:`loop_config` does."""
 
     enabled: bool = True
     residual_threshold: float = 1.15
@@ -211,3 +212,19 @@ def odometry_config() -> SumaConfig:
                       spill_enabled=False),
         loop=LoopClosureConfig(enabled=False),
         preprocess=PreprocessConfig(use_filtered_vertexmap=True))
+
+
+def loop_config() -> SumaConfig:
+    """The loop-closure path at full width: the loop configuration of
+    ``bench.py`` (a 2^21-row arena, a 2^18-row active view, a 1.5-image fresh
+    region, 8192 poses; the gates shrunk for a ~115 m synthetic lap:
+    ``min_trajectory_distance`` 60, ``delta_timestamp`` 20,
+    ``search_distance`` 20, ``min_verifications`` 3, ``outlier_threshold``
+    6), the default unfiltered preprocessing, host spill off (not ported)."""
+    return SumaConfig(
+        map=MapConfig(surfel_capacity=1 << 21, active_capacity=1 << 18,
+                      min_fresh_rows=64 * 900 + 64 * 900 // 2, max_poses=8192,
+                      spill_enabled=False),
+        loop=LoopClosureConfig(enabled=True, min_trajectory_distance=60.0,
+                               delta_timestamp=20, search_distance=20.0,
+                               min_verifications=3, outlier_threshold=6.0))

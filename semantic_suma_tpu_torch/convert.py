@@ -1,5 +1,6 @@
-"""Carry state across from the JAX package: the simulated world and the SLAM
-state, so both packages can start from the same mid-run map.
+"""Carry state across from the JAX package: the simulated world, the SLAM
+state, the pose graph and the loop closer's host state, so both packages can
+start from the same mid-run point.
 
 Nothing here imports JAX: the inputs are duck-typed (a JAX ``World``'s boxes,
 or a JAX ``SlamState`` / ``MapState`` whose leaves were turned into numpy
@@ -74,3 +75,44 @@ def slam_state_from_numpy(state, device=None):
         last_maps=maps_from_numpy(state.last_maps, dev),
         model_maps=maps_from_numpy(state.model_maps, dev),
         timestamp=_t(state.timestamp, dev, torch.int32))
+
+
+def posegraph_from_jax(poses, edges):
+    """A port ``Posegraph`` from a JAX ``Posegraph``'s host lists: its poses
+    (``g.poses()``, numpy [4,4] each) and edge tuples (``g._edges``:
+    ``(i, j, z, info, robust)`` with numpy leaves)."""
+    from .core.posegraph import Posegraph
+    g = Posegraph()
+    for k, p in enumerate(poses):
+        g.set_initial(k, np.asarray(p, np.float32))
+    for i, j, z, info, *rest in edges:
+        g.add_edge(int(i), int(j), np.asarray(z), np.asarray(info),
+                   robust=bool(rest[0]) if rest else False)
+    return g
+
+
+_LOOP_HOST_FIELDS = ("already_verified", "time_without_loop", "loop_count",
+                     "num_optimizations", "num_loop_closures", "num_rebases",
+                     "num_soft_integrations", "sync_request", "pipelined_ok")
+
+
+def loop_state_from_jax(src, dst):
+    """Copy the host fields of a JAX ``LoopCloser`` ``src`` (duck-typed:
+    counters, flags, anchors, candidates and the pose graph's host lists)
+    into the port's ``LoopCloser`` ``dst`` so both continue from the same
+    point. Device-side carries (the verification queue, the pose_old carry,
+    a running optimization) are not carried: they restart empty."""
+    from .core.loop_closure import LoopClosureCandidate
+    for name in _LOOP_HOST_FIELDS:
+        setattr(dst, name, getattr(src, name))
+    for name in ("pose_old", "last_pose_old"):
+        v = getattr(src, name)
+        setattr(dst, name, None if v is None else np.array(v, np.float32))
+    for name in ("unverified", "verified"):
+        setattr(dst, name, [
+            LoopClosureCandidate(int(c.frm), int(c.to),
+                                 np.array(c.rel_pose, np.float32))
+            for c in getattr(src, name)])
+    dst.posegraph = posegraph_from_jax(src.posegraph.poses(),
+                                       src.posegraph._edges)
+    return dst

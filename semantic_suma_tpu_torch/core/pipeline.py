@@ -1,17 +1,20 @@
-"""The per-scan SLAM pipeline, odometry path (counterpart of
+"""The per-scan SLAM pipeline (counterpart of
 ``semantic_suma_tpu/core/pipeline.py``): preprocess -> frame-to-model ICP ->
-track-loss fallback -> map fusion -> model render.
+track-loss fallback -> map fusion -> model render, and the host loop with
+its loop-closure wiring.
 
 The JAX package compiles one device program per scan. Here the step runs
 eagerly; the Gauss-Newton loop, the fallback, the view refresh and the
 creation append read a few scalars to the host (``device.to_host``, counted
 in ``StepInfo.syncs``) to choose their branch. ``SurfelSLAM`` drives the step
-with loop closure and host spill OFF (neither is ported yet).
+and, when enabled, the loop-closure state machine; host spill and chunked
+dispatch are not ported and are refused.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import replace
 from typing import NamedTuple
 
@@ -19,11 +22,13 @@ import numpy as np
 import torch
 
 from ..config import SumaConfig
-from ..device import resolve_device, to_host
+from ..device import AsyncFetch, resolve_device, to_host
 from ..ops import icp as icp_ops
 from ..ops.icp import Maps
 from ..utils import lie
+from ..utils.timing import Stopwatch
 from . import surfel_map as sm
+from .loop_closure import LoopCloser, OldMapRenderCache
 from .preprocessing import empty_maps, preprocess_scan
 
 
@@ -173,35 +178,229 @@ def odometry_step(state: SlamState, points: torch.Tensor,
     return new_state, info
 
 
+def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
+    """Everything the host loop needs, as ONE f32 vector [50] on the device.
+    Layout: pose [0:16], increment [16:32], se3_log(increment) [32:38], then
+    error, valid, inlier, outlier, inlier_residual, invalid, iterations,
+    track_loss, n_created, n_dropped, map_count, block_count. All counters
+    fit f32 exactly (< 2^24)."""
+    s = info.stats
+    dev = info.pose.device
+    inc = info.increment.to(torch.float32)
+    host_known = torch.tensor(
+        [info.iterations, info.track_loss, info.n_created, info.n_dropped],
+        dtype=torch.float32, device=dev)
+    return torch.cat([
+        info.pose.to(torch.float32).reshape(-1), inc.reshape(-1),
+        lie.se3_log(inc).reshape(-1),
+        torch.stack([x.to(torch.float32).reshape(())
+                     for x in (s.error, s.valid, s.inlier, s.outlier,
+                               s.inlier_residual, s.invalid)]),
+        host_known,
+        torch.stack([info.map_count.to(torch.float32).reshape(()),
+                     block_count.to(torch.float32).reshape(())])])
+
+
+class HostStepInfo(NamedTuple):
+    """StepInfo with numpy leaves (free host reads) + extras from the packed
+    fetch."""
+
+    pose: np.ndarray
+    increment: np.ndarray
+    inc_log: np.ndarray
+    stats: icp_ops.IcpStats
+    iterations: int
+    track_loss: bool
+    n_created: int
+    n_dropped: int
+    map_count: int
+    block_count: int
+
+
+def _unpack_step_info(vec: np.ndarray) -> HostStepInfo:
+    t = vec[32:]
+    return HostStepInfo(
+        pose=vec[:16].reshape(4, 4).copy(),
+        increment=vec[16:32].reshape(4, 4).copy(),
+        inc_log=t[:6].copy(),
+        stats=icp_ops.IcpStats(error=float(t[6]), valid=float(t[7]),
+                               inlier=float(t[8]), outlier=float(t[9]),
+                               inlier_residual=float(t[10]),
+                               invalid=float(t[11])),
+        iterations=int(t[12]), track_loss=bool(t[13] > 0),
+        n_created=int(t[14]), n_dropped=int(t[15]),
+        map_count=int(t[16]), block_count=int(t[17]))
+
+
 class SurfelSLAM:
-    """Host-side loop: owns the state, the pose log and the statistics.
-    Synchronous: :meth:`process_scan` returns the result of its own scan.
-    Loop closure and host spill are not ported; a configuration that enables
-    either is refused."""
+    """Host-side loop: owns the device state, the pose log, the statistics
+    and (when enabled) the loop-closure state machine. Runs on the card
+    unless the caller names another device. Host spill
+    (``cfg.map.spill_enabled``) and chunked dispatch (``chunk_size > 1``)
+    are not ported; a configuration that asks for either is refused."""
+
+    # the LoopCloser uses the one-fetch verification/search programs here
+    supports_fused_verify = True
 
     def __init__(self, cfg: SumaConfig, enable_loop_closure: bool | None = None,
-                 device=None):
-        do_loops = cfg.loop.enabled if enable_loop_closure is None \
-            else enable_loop_closure
-        if do_loops and cfg.approach == "frame-to-model":
-            raise NotImplementedError(
-                "loop closure is not ported yet: disable cfg.loop.enabled")
+                 pipeline_depth: int = 4, chunk_size: int = 1, device=None):
         if cfg.map.spill_enabled:
             raise NotImplementedError(
                 "host spill is not ported yet: disable cfg.map.spill_enabled")
+        if chunk_size > 1:
+            raise NotImplementedError(
+                "chunked dispatch is not ported yet: use chunk_size=1")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.state = init_state(cfg, self.device)
         self.timer: StageTimer | None = None
+        # host-visible phases on the host clock (device time per stage of the
+        # step is the StageTimer's)
+        self.stopwatch = Stopwatch()
+        self.pipeline_depth = max(0, pipeline_depth)
+        self._pending: "deque" = deque()
+        self._dispatched = 0
+        # called with every finished scan's stats dict (pipelined draining
+        # completes several scans per call, so return values alone
+        # under-report)
+        self.stats_callback = None
         self.poses: list = []
         self.statistics: list = []
+        self.trajectory_distances: list = [0.0]
         self.track_loss_count = 0
+        self.map_version = 0  # bumped on compaction / pose rebase
         self.creations_dropped = 0
         self.syncs = 0
+        # device-frame -> output-frame pose correction: identity except
+        # after a below-gate integration deferred the device rebase
+        # (LoopCloser.integrate); applied to every fetched pose so the
+        # exported trajectory is always the optimized one
+        self.frame_correction = np.eye(4, dtype=np.float32)
+        self._loop = None
+        self._old_cache = None
+        self._verify_cache = None
+        do_loops = cfg.loop.enabled if enable_loop_closure is None \
+            else enable_loop_closure
+        if do_loops and cfg.approach == "frame-to-model":
+            self._loop = LoopCloser(cfg, device=self.device)
+            # this host loop supports the device-carried verification chain
+            self._loop.pipelined_ok = cfg.loop.pipelined_verification
+        # reduced read-only view for the chained per-scan verification
+        # (cfg.loop.verify_view_fraction of the active blocks around the loop
+        # site): the verify program renders the old view twice per scan, and
+        # the render's cost grows with the view's rows
+        k_blocks = cfg.map.active_capacity // cfg.map.effective_block_size
+        vb = max(1, int(k_blocks * cfg.loop.verify_view_fraction))
+        self._verify_blocks = min(vb, k_blocks)
 
     @property
     def timestamp(self) -> int:
         return len(self.poses)
+
+    # accessors the LoopCloser reads instead of unpacking SlamState
+    @property
+    def pose(self):
+        return self.state.pose
+
+    @property
+    def last_maps(self):
+        return self.state.last_maps
+
+    @property
+    def last_increment(self):
+        return self.state.last_increment
+
+    @property
+    def model_maps(self):
+        return self.state.model_maps
+
+    def set_model_maps(self, maps) -> None:
+        self.state = self.state._replace(model_maps=maps)
+
+    # -- out-of-band map operations (loop closure, rebase, compaction) -----
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def _build_old_view(self, center, thr):
+        return sm.refresh_active(self.state.map, self._tensor(center),
+                                 self.cfg.map, priority="old",
+                                 ts_threshold=thr).active
+
+    def _build_verify_view(self, center, thr):
+        return sm.build_view(self.state.map, self._tensor(center),
+                             self.cfg.map, self._verify_blocks,
+                             ts_threshold=thr)
+
+    def _render_old_view(self, view, pose, conf, thr):
+        return sm.render_view(view, self._tensor(pose), self.cfg.model,
+                              self.cfg.map, conf, thr, "old")
+
+    def compact_map(self) -> None:
+        self.state = self.state._replace(
+            map=sm.compact(self.state.map, self.cfg.map))
+        self.map_version += 1
+
+    def _ready_old_cache(self):
+        if self._old_cache is None:
+            self._old_cache = OldMapRenderCache(
+                build_view=self._build_old_view,
+                render_view=self._render_old_view,
+                delta_timestamp=self.cfg.loop.delta_timestamp)
+        return self._old_cache
+
+    def old_view(self, view_pose, timestamp: int | None = None):
+        """Cached old-map device VIEW around ``view_pose`` -> (view, thr);
+        input to the LoopCloser's verify/search programs. ``timestamp``
+        defaults to the drain count; dispatch-time callers pass their
+        explicit dispatch count so that pre-dispatched and drain-time
+        verification use identical ts thresholds."""
+        return self._ready_old_cache().view_for(
+            view_pose, self.timestamp if timestamp is None else timestamp,
+            self.map_version)
+
+    def verify_view(self, view_pose, timestamp: int):
+        """Reduced old view for the chained per-scan verification (the
+        candidate search keeps the full view). The full cache when
+        verify_view_fraction >= 1."""
+        if self._verify_blocks * self.cfg.map.effective_block_size \
+                >= self.cfg.map.active_capacity:
+            return self.old_view(view_pose, timestamp)
+        if self._verify_cache is None:
+            # wider motion bound than the full cache: the verify view is
+            # rendered through the verification gates (which tolerate the
+            # extra staleness), and each rebuild stalls the chained verify
+            self._verify_cache = OldMapRenderCache(
+                build_view=self._build_verify_view,
+                render_view=self._render_old_view,
+                delta_timestamp=self.cfg.loop.delta_timestamp,
+                motion_bound=12.0)
+        return self._verify_cache.view_for(view_pose, timestamp,
+                                           self.map_version)
+
+    def render_old_maps(self, view_pose):
+        """Cached old-(inactive-)map render at ``view_pose``."""
+        return self._ready_old_cache().render(
+            view_pose, self.timestamp, self.confidence_threshold(),
+            self.map_version)
+
+    def rebase(self, new_poses: np.ndarray, new_current: np.ndarray) -> None:
+        """Rewrite the pose table (only poses change, surfels stay in their
+        creation frames) and re-render the model view at the corrected
+        pose."""
+        table = self.state.map.poses.clone()
+        m = min(len(new_poses), table.shape[0])
+        table[:m] = self._tensor(np.asarray(new_poses)[:m])
+        cur = self._tensor(new_current)
+        new_map = sm.update_poses(self.state.map, table, self.cfg.map)
+        model_maps = sm.render_maps(
+            new_map, cur, self.cfg.model, self.cfg.map,
+            self.confidence_threshold(),
+            self.timestamp - self.cfg.loop.delta_timestamp, render_old=False)
+        self.state = self.state._replace(map=new_map, pose=cur,
+                                         model_maps=model_maps)
+        for i in range(min(len(new_poses), len(self.poses))):
+            self.poses[i] = np.asarray(new_poses[i])
+        self.map_version += 1
 
     def _conf_at(self, t: int) -> float:
         """Confidence warmup schedule at scan ``t``."""
@@ -211,8 +410,20 @@ class SurfelSLAM:
             return (1.0 - a) * cfg.log_unstable + a * cfg.confidence_threshold
         return cfg.confidence_threshold
 
-    def process_scan(self, points, labels=None, probs=None, point_valid=None):
-        """Feed one scan; returns its statistics dict."""
+    def confidence_threshold(self) -> float:
+        """The schedule at the current DISPATCH count (equals len(poses) in
+        sync mode; runs ahead of it while scans are in flight)."""
+        return self._conf_at(self._dispatched)
+
+    # -- dispatch / drain split -------------------------------------------
+    # ``_dispatch`` runs the step and starts the copy of its packed info
+    # vector to the host; ``_drain_one`` completes the host bookkeeping of
+    # the oldest dispatch. ``process_scan`` is fully synchronous (the
+    # loop-closure state machine gets the result before the next scan);
+    # ``process_scan_async`` keeps up to ``pipeline_depth`` scans' host
+    # bookkeeping outstanding.
+
+    def _dispatch(self, points, labels, probs, point_valid) -> None:
         t_start = time.perf_counter()
         dev = self.device
         points = torch.as_tensor(points, dtype=torch.float32, device=dev)
@@ -224,52 +435,159 @@ class SurfelSLAM:
         point_valid = (torch.ones((n,), dtype=torch.bool, device=dev)
                        if point_valid is None
                        else torch.as_tensor(point_valid, device=dev))
-        ct = self._conf_at(self.timestamp)
+        ct = self._conf_at(self._dispatched)
+        self._dispatched += 1
         self.state, info = odometry_step(self.state, points, labels, probs,
                                          point_valid, ct, self.cfg,
                                          timer=self.timer)
+        packed = _pack_step_info(info, self.state.map.block_count)
+        self._pending.append((AsyncFetch(packed), t_start, info.syncs))
+        self.stopwatch.record("dispatch", time.perf_counter() - t_start)
 
-        # ONE device->host read for everything the host keeps
-        s = info.stats
-        vec = np.asarray(to_host(torch.cat([
-            info.pose.reshape(-1).to(torch.float64), torch.stack([
-                s.error.double(), s.valid.double(), s.inlier.double(),
-                s.outlier.double(), s.invalid.double(),
-                info.map_count.double()])])))
-        self.syncs += info.syncs + 1
-        pose = vec[:16].reshape(4, 4)
-        error, valid, inlier, outlier, invalid, map_count = vec[16:]
+    def _inflight(self) -> int:
+        """Scans dispatched whose results the host has not processed yet
+        (excluding the one being drained)."""
+        return len(self._pending)
 
-        # compaction when the arena could overflow or a creation was dropped
+    def _drain_one(self) -> dict:
+        fetch, t_start, step_syncs = self._pending.popleft()
+        t_f = time.perf_counter()
+        vec = fetch.wait()   # the host loop's one blocking read per scan
+        self.stopwatch.record("fetch-wait", time.perf_counter() - t_f)
+        self.syncs += step_syncs + 1
+        return self._finish_host(vec, t_start)
+
+    def _finish_host(self, vec: np.ndarray, t_start: float) -> dict:
+        info = _unpack_step_info(vec)
+        # map device-frame poses to the output frame (identity unless a
+        # below-gate integration deferred the device rebase)
+        info = info._replace(pose=self.frame_correction @ info.pose)
+        lag = self._inflight()  # scans dispatched after this one
+        t0 = time.perf_counter()
+
+        # compaction when the arena could overflow or a creation was
+        # dropped. In pipelined mode the fetched counters lag by ``lag``
+        # scans, so the headroom test widens by lag * hw (worst-case growth)
         cap = self.cfg.map.surfel_capacity
         hw = self.cfg.data.height * self.cfg.data.width
-        self.creations_dropped += info.n_dropped
-        if map_count + hw > cap or info.n_dropped:
-            self.state = self.state._replace(
-                map=sm.compact(self.state.map, self.cfg.map))
-
+        n_dropped = info.n_dropped
+        self.creations_dropped += n_dropped
+        pose = info.pose
+        if info.map_count + (1 + lag) * hw > cap or n_dropped:
+            self.compact_map()
         self.poses.append(pose)
+        if len(self.poses) > 1:
+            self.trajectory_distances.append(
+                self.trajectory_distances[-1]
+                + float(np.linalg.norm(self.poses[-2][:3, 3] - pose[:3, 3])))
         self.track_loss_count += int(info.track_loss)
+
         stats = {
             "icp-iterations": info.iterations,
-            "icp-error": float(error),
-            "icp-inlier": int(inlier),
-            "icp-outlier": int(outlier),
-            "icp-valid": int(valid),
-            "icp-invalid": int(invalid),
+            "icp-error": info.stats.error,
+            "icp-inlier": int(info.stats.inlier),
+            "icp-outlier": int(info.stats.outlier),
+            "icp-valid": int(info.stats.valid),
+            "icp-invalid": int(info.stats.invalid),
             "track-loss": info.track_loss,
-            "map-count": int(map_count),
+            "map-count": info.map_count,
             "surfels-created": info.n_created,
-            "creations-dropped": info.n_dropped,
-            "complete-time": time.perf_counter() - t_start,
+            "creations-dropped": n_dropped,
         }
+        self.stopwatch.record("host/bookkeep", time.perf_counter() - t0)
+        if self._loop is not None:
+            loop_stats = self._loop.on_scan(self, info, lag=self._inflight())
+            stats.update(loop_stats)
+            if "loop-time" in loop_stats:
+                self.stopwatch.record("loop", loop_stats["loop-time"])
+
+        stats["complete-time"] = time.perf_counter() - t_start
+        self.stopwatch.record("complete", stats["complete-time"])
         self.statistics.append(stats)
+        if self.stats_callback is not None:
+            self.stats_callback(stats)
         return stats
 
+    def process_scan(self, points, labels=None, probs=None, point_valid=None):
+        """Feed one scan; returns its statistics dict. Fully synchronous:
+        the result belongs to THIS scan."""
+        self._dispatch(points, labels, probs, point_valid)
+        if self._loop is not None:
+            if self._loop.chain_live and self._loop.pipelined_ok:
+                self._loop.dispatch_verify(self, self._dispatched - 1)
+            else:
+                self._loop.pre_dispatch(self)
+        out = self._drain_one()
+        if self._loop is not None and self._loop._opt_future is not None:
+            # synchronous mode keeps the reference's ordering: an
+            # optimization launched by this scan integrates before the next
+            # scan (the background thread only hides the solve in the
+            # pipelined path)
+            self._loop._opt_future.result()
+            self._loop.integrate(self)
+        return out
+
+    def process_scan_async(self, points, labels=None, probs=None,
+                           point_valid=None):
+        """Pipelined path: dispatches this scan and completes the
+        host bookkeeping of the scan dispatched ``pipeline_depth`` scans ago
+        (returns its stats dict, or None while the pipeline fills).
+
+        What it hides here: ``odometry_step`` itself still reads the host
+        (the Gauss-Newton stopping test every iteration, the refresh branch,
+        the creation count), so a dispatch returns only when the step's
+        device work is nearly done, and only the last fetch of a scan and
+        its host bookkeeping are deferred. The loop-closure protocol is the
+        reference's all the same: a live candidate chain stays pipelined
+        (verification is a per-scan device program whose pose_old anchor is
+        CARRIED ON DEVICE between dispatches, ``LoopCloser.dispatch_verify``),
+        the graph optimization runs on a background thread with deferred
+        integration, and the pipeline drains only for a candidate SEARCH and
+        for above-gate rebases. Call :meth:`flush` after the last scan."""
+        if self._loop is not None and self._loop.needs_integration:
+            self._loop.integrate(self)  # drains internally if it rebases
+        self._dispatch(points, labels, probs, point_valid)
+        if self._loop is not None:
+            if self._loop.chain_live and self._loop.pipelined_ok:
+                self._loop.dispatch_verify(self, self._dispatched - 1)
+                if self._loop.sync_needed:  # deferred search pending
+                    return self.flush()
+            elif self._loop.sync_needed:
+                self._loop.pre_dispatch(self)
+                return self.flush()
+        if len(self._pending) > self.pipeline_depth:
+            return self._drain_one()
+        return None
+
     def flush(self):
-        """Nothing is ever in flight (process_scan is synchronous); returns the
-        last statistics dict or None."""
-        return self.statistics[-1] if self.statistics else None
+        """Drain all in-flight scans; then integrate any finished (or still
+        running: the call waits for it) background graph optimization.
+        Returns the last stats dict or None."""
+        out = None
+        while self._pending:
+            out = self._drain_one()
+        if self._loop is not None and self._loop._opt_future is not None:
+            self._loop._opt_future.result()
+            self._loop.integrate(self)
+        return out
+
+    def finalize(self):
+        """End-of-sequence: drain, then run one FINAL pose-graph solve over
+        every accumulated edge and integrate it, so the exported trajectory
+        reflects ALL loop closures (mid-run the solver only launches every
+        ~7 closures, leaving the edges since the last launch unsolved). Safe
+        to call several times and on a run of zero scans; not called from
+        the per-scan path."""
+        out = self.flush()
+        lp = self._loop
+        if lp is not None and self.timestamp > 0 \
+                and len(lp.posegraph._edges) > self.timestamp - 1:
+            # loop edges exist beyond the odometry chain: solve them all
+            lp._launch_optimize()
+            if lp._opt_future is not None:
+                lp._opt_future.result()
+                lp.integrate(self)
+        return out
 
     def trajectory(self) -> np.ndarray:
         return np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))

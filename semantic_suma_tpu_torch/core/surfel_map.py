@@ -1,6 +1,7 @@
-"""Semantic surfel map, odometry subset: packed state, the block-paged active
-view, per-scan fusion and the model render (counterpart of
-``semantic_suma_tpu/core/surfel_map.py``).
+"""Semantic surfel map: packed state, the block-paged active view, per-scan
+fusion and the model render, and the out-of-band operations of loop closure
+(read-only old-map views, renders of a view, composed old+new renders, the
+pose-table rewrite) (counterpart of ``semantic_suma_tpu/core/surfel_map.py``).
 
 Surfels live in two arrays, ``f32 [N, 16]`` (position 0:3, normal 3:6, radius
 6, confidence 7, weight 8, sem_prob 9, world position 10:13, world normal
@@ -19,7 +20,7 @@ on device values becomes Python control on values read to the host.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -28,7 +29,7 @@ from ..device import to_host
 from ..models.labels import is_movable
 from ..ops.icp import Maps
 from ..ops.projection import INV_PI, pixel_rays
-from ..ops.zbuffer import zbuffer_runs
+from ..ops.zbuffer import zbuffer_argmin, zbuffer_runs
 from ..utils import lie
 
 _DEG = 180.0 / math.pi
@@ -210,11 +211,35 @@ def _top_blocks(score: torch.Tensor, n: int):
     return s[:n], ids[:n]
 
 
+def _score_blocks(d: PackedSurfels, center: torch.Tensor, cfg: MapConfig,
+                  margin: float, priority: str, ts_threshold, allocated=None):
+    """Block scores for a view around ``center``: minus the distance of the
+    block's nearest valid surfel (``priority="old"`` with a ``ts_threshold``
+    counts only surfels created before it), -inf beyond the view radius or
+    outside ``allocated``, with a small bias toward newer ("new") or older
+    ("old") blocks on near-ties."""
+    bs, nb, _, _ = _geometry(cfg)
+    valid = d.valid.reshape(nb, bs)
+    cts = d.creation_ts.reshape(nb, bs)
+    if priority == "old" and ts_threshold is not None:
+        valid = valid & (cts < ts_threshold)
+    dist = torch.linalg.norm(d.wpos.reshape(nb, bs, 3) - center, dim=-1)
+    dmin = torch.amin(torch.where(valid, dist, torch.inf), dim=1)
+    near = dmin < (cfg.active_radius + margin)
+    if allocated is not None:
+        near = near & allocated
+    score = torch.where(near, -dmin, -torch.inf)
+    bias = torch.amax(torch.where(valid, cts, 0), dim=1).to(torch.float32)
+    return score + (1e-5 * bias if priority == "new" else -1e-5 * bias)
+
+
 def refresh_active(state: MapState, center: torch.Tensor, cfg: MapConfig,
-                   margin: float = 25.0) -> MapState:
+                   margin: float = 25.0, priority: str = "new",
+                   ts_threshold=None) -> MapState:
     """Sync, then rebuild the whole view around ``center`` at block
-    granularity (the "new" priority of the JAX refresh); unused fresh blocks of
-    the previous cycle are rolled back first."""
+    granularity; ``priority="old"`` with a ``ts_threshold`` pages in the
+    inactive map (loop closure). Unused fresh blocks of the previous cycle
+    are rolled back first."""
     bs, nb, k, f_blocks = _geometry(cfg)
     dev = center.device
     state = sync(state, cfg)
@@ -224,16 +249,9 @@ def refresh_active(state: MapState, center: torch.Tensor, cfg: MapConfig,
     next_alloc = torch.clamp_max(state.active_blocks[k - f_blocks]
                                  + used_blocks, nb)
 
-    d = state.data
-    valid = d.valid.reshape(nb, bs)
-    cts = d.creation_ts.reshape(nb, bs)
-    dist = torch.linalg.norm(d.wpos.reshape(nb, bs, 3) - center, dim=-1)
-    dmin = torch.amin(torch.where(valid, dist, torch.inf), dim=1)
     allocated = torch.arange(nb, device=dev) < next_alloc
-    near = dmin < (cfg.active_radius + margin)
-    score = torch.where(allocated & near, -dmin, -torch.inf)
-    bias = torch.amax(torch.where(valid, cts, 0), dim=1).to(torch.float32)
-    score = score + 1e-5 * bias
+    score = _score_blocks(state.data, center, cfg, margin, priority,
+                          ts_threshold, allocated)
     top_score, top_ids = _top_blocks(score, k - f_blocks)
     pads = nb + torch.arange(k - f_blocks, device=dev)
     map_blocks = torch.where(torch.isfinite(top_score), top_ids, pads)
@@ -250,6 +268,31 @@ def refresh_active(state: MapState, center: torch.Tensor, cfg: MapConfig,
                                   device=dev),
         block_count=torch.clamp_max(next_alloc + f_blocks, nb).to(torch.int32),
         anchor=center.to(torch.float32))
+
+
+def build_view(state: MapState, center: torch.Tensor, cfg: MapConfig,
+               n_blocks: int, ts_threshold=None, margin: float = 25.0,
+               priority: str = "old") -> PackedSurfels:
+    """READ-ONLY [n_blocks*bs]-row view around ``center``: the block scoring
+    of :func:`refresh_active` without touching the active view, the fresh
+    allocation or the arena bookkeeping. The rows are a copy: later scans
+    and pose rewrites do not reach them. Used by loop-closure verification
+    (a smaller view halves the cost of each old-map render)."""
+    bs, nb, _, _ = _geometry(cfg)
+    state = sync(state, cfg)  # fold the (authoritative) active view in
+    score = _score_blocks(state.data, center, cfg, margin, priority,
+                          ts_threshold)
+    top_score, top_ids = _top_blocks(score, n_blocks)
+    ids = torch.where(torch.isfinite(top_score), top_ids, nb)
+    view = _block_take(state.data, ids, bs)
+    if priority == "old" and ts_threshold is not None:
+        # blocks may mix old and new surfels; mask the new ones so the
+        # caller's render ("old" selection) sees a pure inactive view
+        keep = view.creation_ts < ts_threshold
+        i = view.i.clone()
+        i[:, _VALID] = (view.valid & keep).to(torch.int32)
+        view = PackedSurfels(f=view.f, i=i)
+    return view
 
 
 def refresh_active_incremental(state: MapState, center: torch.Tensor,
@@ -422,6 +465,8 @@ def _project_px(pts: torch.Tensor, cfg: DataConfig):
 
 
 class _Projected(NamedTuple):
+    p_c: torch.Tensor   # position in the camera frame
+    n_c: torch.Tensor   # normal in the camera frame
     depth: torch.Tensor
     px: torch.Tensor
     py: torch.Tensor
@@ -438,7 +483,7 @@ def _project_surfels(data: PackedSurfels, pose_inv: torch.Tensor,
     depth = torch.linalg.norm(p_c, dim=-1)
     cosv = torch.sum(n_c * (-p_c), dim=-1) / torch.clamp_min(depth, 1e-12)
     px, py, depth, inside = _project_px(p_c, cfg)
-    return _Projected(depth, px, py, inside, cosv)
+    return _Projected(p_c, n_c, depth, px, py, inside, cosv)
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +528,132 @@ def _disk_resolve(img: torch.Tensor, hasg: torch.Tensor, cfg: DataConfig,
     return Maps(vertex=best[..., 0:3], normal=best[..., 3:6],
                 vertex_valid=best_ok, normal_valid=best_ok,
                 sem_label=best[..., 7].to(torch.int32), sem_prob=best[..., 8])
+
+
+class RenderEntries(NamedTuple):
+    data: PackedSurfels
+    proj: _Projected
+    sel: torch.Tensor
+
+
+def _selection(data: PackedSurfels, proj: _Projected, map_cfg: MapConfig,
+               conf_threshold, ts_threshold, which: str) -> torch.Tensor:
+    sel = data.valid & (proj.cosv > 0.01) & proj.inside
+    if map_cfg.use_stability:
+        sel = sel & (data.confidence > conf_threshold)
+    if which == "old":
+        sel = sel & (data.creation_ts < ts_threshold)
+    elif which == "new":
+        sel = sel & ((data.creation_ts >= ts_threshold)
+                     | (data.timestamp >= ts_threshold))
+    return sel
+
+
+def _resolve_maps(entries_list: Sequence[RenderEntries], cfg: DataConfig,
+                  resolve_radius: int = 1) -> Maps:
+    """Candidate streams -> model maps: the nearest candidate per pixel by
+    one z-buffer pass over every stream (surfel centers only), its
+    attributes gathered into one dense [H, W, 9] image, then the tangent-
+    disk resolve."""
+    h, w = cfg.height, cfg.width
+    hw = h * w
+    ids, deps, attrs = [], [], []
+    for e in entries_list:
+        ids.append(torch.where(e.sel, e.proj.py * w + e.proj.px, -1))
+        deps.append(torch.where(e.sel, e.proj.depth, torch.inf))
+        attrs.append(torch.cat([
+            e.proj.p_c, e.proj.n_c, e.data.radius[:, None],
+            e.data.sem_label[:, None].to(torch.float32),
+            e.data.sem_prob[:, None]], dim=-1))
+    winner, _ = zbuffer_argmin(torch.cat(ids), torch.cat(deps), hw,
+                               depth_bound=max(100.0, cfg.max_depth))
+    has = winner >= 0
+    img = torch.where(has[:, None], torch.cat(attrs)[winner.clamp_min(0)], 0.0)
+    return _disk_resolve(img.reshape(h, w, 9), has.reshape(h, w), cfg,
+                         resolve_radius)
+
+
+def render_view(data: PackedSurfels, pose: torch.Tensor, cfg: DataConfig,
+                map_cfg: MapConfig, conf_threshold, ts_threshold,
+                which: str = "new") -> Maps:
+    pose_inv = lie.se3_inverse(pose.to(torch.float32))
+    proj = _project_surfels(data, pose_inv, cfg)
+    sel = _selection(data, proj, map_cfg, conf_threshold, ts_threshold, which)
+    return _resolve_maps([RenderEntries(data, proj, sel)], cfg,
+                         map_cfg.splat_resolve_radius)
+
+
+def render_maps(state: MapState, pose: torch.Tensor, cfg: DataConfig,
+                map_cfg: MapConfig, conf_threshold, ts_threshold,
+                render_old: bool = False) -> Maps:
+    """Out-of-band render (rebase, tests): syncs the view, then renders from
+    a fresh active subset around the pose."""
+    synced = refresh_active(state, pose[:3, 3].to(torch.float32), map_cfg,
+                            priority="old" if render_old else "new",
+                            ts_threshold=ts_threshold if render_old else None)
+    return render_view(synced.active, pose, cfg, map_cfg, conf_threshold,
+                       ts_threshold, "old" if render_old else "new")
+
+
+def render_composed(state: MapState, pose_old: torch.Tensor,
+                    pose_new: torch.Tensor, cfg: DataConfig,
+                    map_cfg: MapConfig, conf_threshold, ts_threshold) -> Maps:
+    """Old surfels from pose_old + new surfels from pose_new in one z-buffer.
+    Uses two view refreshes so that under view overflow both the old and the
+    new map parts are represented."""
+    inv_old = lie.se3_inverse(pose_old.to(torch.float32))
+    inv_new = lie.se3_inverse(pose_new.to(torch.float32))
+    data_o = refresh_active(state, pose_old[:3, 3].to(torch.float32), map_cfg,
+                            priority="old", ts_threshold=ts_threshold).active
+    data_n = refresh_active(state, pose_new[:3, 3].to(torch.float32), map_cfg,
+                            priority="new").active
+    proj_o = _project_surfels(data_o, inv_old, cfg)
+    proj_n = _project_surfels(data_n, inv_new, cfg)
+    sel_o = _selection(data_o, proj_o, map_cfg, conf_threshold, ts_threshold,
+                       "old")
+    sel_n = _selection(data_n, proj_n, map_cfg, conf_threshold, ts_threshold,
+                       "new")
+    return _resolve_maps([RenderEntries(data_o, proj_o, sel_o),
+                          RenderEntries(data_n, proj_n, sel_n)], cfg,
+                         map_cfg.splat_resolve_radius)
+
+
+def compose_views(old: Maps, new: Maps, max_distance: float) -> Maps:
+    """Image-space merge of an old-map render into a new-map render: a pixel
+    takes the old map where the new one has nothing complete and the two
+    agree within ``max_distance`` (or the new one has no vertex at all)."""
+    new_ok = new.vertex_valid & new.normal_valid
+    old_ok = old.vertex_valid & old.normal_valid
+    dist = torch.linalg.norm(new.vertex - old.vertex, dim=-1)
+    take_old = ~new_ok & old_ok & (~new.vertex_valid | (dist < max_distance))
+    return Maps(
+        vertex=torch.where(take_old[..., None], old.vertex, new.vertex),
+        normal=torch.where(take_old[..., None], old.normal, new.normal),
+        vertex_valid=torch.where(take_old, old.vertex_valid,
+                                 new.vertex_valid),
+        normal_valid=torch.where(take_old, old.normal_valid,
+                                 new.normal_valid),
+        sem_label=torch.where(take_old, old.sem_label, new.sem_label),
+        sem_prob=torch.where(take_old, old.sem_prob, new.sem_prob))
+
+
+def _index_winner(data: PackedSurfels, pose_inv: torch.Tensor,
+                  cfg: DataConfig) -> torch.Tensor:
+    """Nearest visible surfel row per pixel, -1 = none."""
+    proj = _project_surfels(data, pose_inv, cfg)
+    ok = data.valid & (proj.cosv > 0.01) & proj.inside
+    ids = torch.where(ok, proj.py * cfg.width + proj.px, -1)
+    winner, _ = zbuffer_argmin(ids, proj.depth, cfg.height * cfg.width,
+                               depth_bound=max(100.0, cfg.max_depth))
+    return winner
+
+
+def render_index_map(state: MapState, pose_inv: torch.Tensor,
+                     cfg: DataConfig, map_cfg: MapConfig) -> torch.Tensor:
+    """Full-store index map [H, W] (global rows)."""
+    synced = sync(state, map_cfg)
+    return _index_winner(synced.data, pose_inv, cfg).reshape(
+        cfg.height, cfg.width)
 
 
 # ---------------------------------------------------------------------------
@@ -877,4 +1048,22 @@ def compact(state: MapState, cfg: MapConfig) -> MapState:
     state = state._replace(
         data=PackedSurfels(f=d.f[perm], i=d.i[perm]), count=n_valid,
         block_count=((n_valid + bs - 1) // bs).to(torch.int32))
+    return _reset_view(state, cfg)
+
+
+def update_poses(state: MapState, new_poses: torch.Tensor,
+                 cfg: MapConfig) -> MapState:
+    """Rewrite the pose table after loop closure and refresh the cached
+    world-frame geometry (surfels are never touched, only poses).
+    Invalidates the active view. The input state stays valid."""
+    state = sync(state, cfg)  # a copy of the store: written in place below
+    d = state.data
+    new_poses = new_poses.to(torch.float32)
+    cp = new_poses[torch.clamp(d.creation_ts.to(torch.int64), 0,
+                               new_poses.shape[0] - 1)]
+    f = d.f
+    f[:, _WPOS] = torch.einsum("nij,nj->ni", cp[:, :3, :3], d.position) \
+        + cp[:, :3, 3]
+    f[:, _WNRM] = torch.einsum("nij,nj->ni", cp[:, :3, :3], d.normal)
+    state = state._replace(data=PackedSurfels(f=f, i=d.i), poses=new_poses)
     return _reset_view(state, cfg)

@@ -3,6 +3,7 @@ which the port reads device values to the host."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,3 +28,26 @@ def to_host(t: torch.Tensor):
 
 
 to_host.count = 0
+
+
+class AsyncFetch:
+    """A device tensor on its way to the host: on CUDA a ``non_blocking`` copy
+    into pinned memory followed by a recorded event, on the CPU the tensor
+    itself. :meth:`wait` blocks on the event (one host read, counted in
+    ``to_host.count``) and returns the numpy array."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t.detach()
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        to_host.count += 1
+        return self._host.numpy()

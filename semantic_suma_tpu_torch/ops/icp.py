@@ -210,6 +210,10 @@ def jacobian_products(pose: torch.Tensor, data: Maps, model: Maps,
     return ata[:6, :6], ata[:6, 6], stats
 
 
+# calls of gauss_newton and the iterations they ran, since the process began
+gn_counts = {"calls": 0, "iterations": 0}
+
+
 def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """6x6 SPD solve by Cholesky with a tiny Tikhonov floor; NaN where the
     factorization fails (as the JAX Cholesky does)."""
@@ -221,10 +225,14 @@ def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
-                 model_cfg: DataConfig, semantic: bool = True) -> IcpResult:
+                 model_cfg: DataConfig, semantic: bool = True,
+                 max_iterations: int | None = None) -> IcpResult:
     """Gauss-Newton alignment. Stops on a minimal step (||delta||_inf <
     delta), a vanishing gradient, a converged error change, or a non-finite
-    step, checked after applying the increment."""
+    step, checked after applying the increment; at most ``max_iterations``
+    (default ``icp.max_iterations``) linearizations. ``gn_counts`` counts the
+    calls and their iterations for the run reports."""
+    max_iter = icp.max_iterations if max_iterations is None else max_iterations
     model_img = _pack_model_image(model)
     pose = t0.to(torch.float32)
     last_err = torch.full((), torch.inf, dtype=torch.float32,
@@ -234,7 +242,7 @@ def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
                                   torch.int32, torch.float32, torch.int32)))
     k = 0
     done = False
-    while k < icp.max_iterations and not done:
+    while k < max_iter and not done:
         rows, stats = build_rows(pose, data, model, icp, model_cfg, k,
                                  semantic, model_img=model_img)
         ata = rows.T @ rows
@@ -252,5 +260,15 @@ def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
         last_err = err
         k += 1
         done = to_host(stop)
+    gn_counts["calls"] += 1
+    gn_counts["iterations"] += k
     return IcpResult(pose=pose, stats=stats, iterations=k)
+
+
+def evaluate(pose: torch.Tensor, data: Maps, model: Maps, icp: IcpConfig,
+             model_cfg: DataConfig, semantic: bool = True) -> IcpStats:
+    """Residual statistics at a fixed pose (loop-closure verification): one
+    linearization, returned as device tensors with no host read."""
+    _, stats = build_rows(pose, data, model, icp, model_cfg, 0, semantic)
+    return stats
 

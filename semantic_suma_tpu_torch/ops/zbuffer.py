@@ -179,12 +179,14 @@ def zbuffer_cells(ids, depth, flags, num_cells: int, *, exact: bool,
         del _tables[(dev, nq * num_cells)]
         cuda_build.check(rc, "zbuffer_cells")
     zbuffer_cells.launches += 1
-    zbuffer_cells.launches_by_flags[len(flags)] += 1
+    shape = (n, len(flags))
+    zbuffer_cells.launches_by_shape[shape] = \
+        zbuffer_cells.launches_by_shape.get(shape, 0) + 1
     return winner, wdepth
 
 
 zbuffer_cells.launches = 0
-zbuffer_cells.launches_by_flags = [0, 0, 0, 0]  # the same calls, by flag count
+zbuffer_cells.launches_by_shape = {}  # the same calls by (candidates, flags)
 
 
 def _zbuffer_lib():

@@ -14,7 +14,7 @@ bilateral filter on.
   does from itself when its input moves by one ulp (a Gauss-Newton loop that
   stops at its iteration cap amplifies rounding), so the free run is held
   only on the final map count, within 0.5%.
-* ``SurfelSLAM`` refuses loop closure, spill, and a missing GPU.
+* ``SurfelSLAM`` refuses spill, chunked dispatch, and a missing GPU.
 """
 import dataclasses
 
@@ -197,13 +197,20 @@ def test_map_maintenance_matches_jax(run):
 def test_surfel_slam_refuses_unported_paths():
     _, cfg = _configs()
     with pytest.raises(NotImplementedError):
-        tp.SurfelSLAM(dataclasses.replace(cfg, loop=LoopClosureConfig()),
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
         tp.SurfelSLAM(cfg.replace(map=dataclasses.replace(
             cfg.map, spill_enabled=True)), device="cpu")
     with pytest.raises(NotImplementedError):
-        tp.SurfelSLAM(cfg, enable_loop_closure=True, device="cpu")
+        tp.SurfelSLAM(cfg, chunk_size=4, device="cpu")
+    # loop closure is ported: asked for either way, ``SurfelSLAM`` builds one
+    for slam in (tp.SurfelSLAM(dataclasses.replace(
+                     cfg, loop=LoopClosureConfig()), device="cpu"),
+                 tp.SurfelSLAM(cfg, enable_loop_closure=True, device="cpu")):
+        assert slam._loop is not None and slam._loop.pipelined_ok
+        assert slam._loop.device.type == "cpu"
+    assert tp.SurfelSLAM(cfg, device="cpu")._loop is None
+    f2f = tp.SurfelSLAM(dataclasses.replace(cfg, approach="frame-to-frame"),
+                        enable_loop_closure=True, device="cpu")
+    assert f2f._loop is None
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked():
