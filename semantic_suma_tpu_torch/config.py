@@ -1,12 +1,16 @@
 """Typed configuration for the port: the same frozen dataclasses and code
 defaults as ``semantic_suma_tpu/config.py`` (kept as a copy, because importing
-that module would import JAX). The XML loader and ``sweep`` are not ported
-yet."""
+that module would import JAX), the loader of the reference's XML parameter
+files and the ``sweep`` iterator."""
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
+import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field, replace
+from typing import Any, Dict, Iterator, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -220,7 +224,7 @@ def loop_config() -> SumaConfig:
     region, 8192 poses; the gates shrunk for a ~115 m synthetic lap:
     ``min_trajectory_distance`` 60, ``delta_timestamp`` 20,
     ``search_distance`` 20, ``min_verifications`` 3, ``outlier_threshold``
-    6), the default unfiltered preprocessing, host spill off (not ported)."""
+    6), the default unfiltered preprocessing, host spill off."""
     return SumaConfig(
         map=MapConfig(surfel_capacity=1 << 21, active_capacity=1 << 18,
                       min_fresh_rows=64 * 900 + 64 * 900 // 2, max_poses=8192,
@@ -228,3 +232,169 @@ def loop_config() -> SumaConfig:
         loop=LoopClosureConfig(enabled=True, min_trajectory_distance=60.0,
                                delta_timestamp=20, search_distance=20.0,
                                min_verifications=3, outlier_threshold=6.0))
+
+
+def forced_spill_sections(height: int, width: int, arena_rows: int,
+                          view_rows: int, spill: bool = True,
+                          loops: bool = True) -> Dict[str, Dict[str, Any]]:
+    """The forced-spill configuration of ``tests/test_spill.py`` at any image
+    size, as keyword arguments by section (``data``, ``icp``, ``map``,
+    ``loop``), so that either package can build it: a 12 m sensor (1 m
+    minimum), 10 ICP iterations, 256 poses, one 8 m submap cell, spill and
+    page-in margins of 5 m (keep radius 12 + 5 = 17 m: nothing the sensor
+    still sees is evicted), 4-block chunks, and the loop gates of
+    ``loop_config()``."""
+    return dict(
+        data=dict(width=width, height=height, max_depth=12.0, min_depth=1.0),
+        icp=dict(max_iterations=10),
+        map=dict(surfel_capacity=arena_rows, active_capacity=view_rows,
+                 max_poses=256, submap_dimension=1, submap_extent=8.0,
+                 spill_enabled=spill, spill_margin=5.0, unspill_margin=5.0,
+                 spill_chunk_blocks=4),
+        loop=dict(enabled=loops, min_trajectory_distance=60.0,
+                  delta_timestamp=20, search_distance=20.0,
+                  min_verifications=3, outlier_threshold=6.0))
+
+
+def forced_spill_config(height: int, width: int, arena_rows: int,
+                        view_rows: int, spill: bool = True,
+                        loops: bool = True) -> SumaConfig:
+    """``forced_spill_sections`` as the port's configuration."""
+    s = forced_spill_sections(height, width, arena_rows, view_rows, spill,
+                              loops)
+    d = DataConfig(**s["data"])
+    return SumaConfig(data=d, model=d, icp=IcpConfig(**s["icp"]),
+                      map=MapConfig(**s["map"]),
+                      loop=LoopClosureConfig(**s["loop"]))
+
+
+# ---------------------------------------------------------------------------
+# XML compatibility layer
+# ---------------------------------------------------------------------------
+
+_XML_CASTS = {
+    "integer": int,
+    "float": float,
+    "string": str,
+    "boolean": lambda s: s.strip().lower() == "true",
+}
+
+# reference XML parameter name -> (section, field) in SumaConfig
+_XML_MAP: Dict[str, Tuple[str, str]] = {
+    "data_width": ("data", "width"),
+    "data_height": ("data", "height"),
+    "data_fov_up": ("data", "fov_up"),
+    "data_fov_down": ("data", "fov_down"),
+    "max_depth": ("data", "max_depth"),
+    "min_depth": ("data", "min_depth"),
+    "model_width": ("model", "width"),
+    "model_height": ("model", "height"),
+    "model_fov_up": ("model", "fov_up"),
+    "model_fov_down": ("model", "fov_down"),
+    "model_max_depth": ("model", "max_depth"),
+    "model_min_depth": ("model", "min_depth"),
+    "max iterations": ("icp", "max_iterations"),
+    "stopping threshold": ("icp", "stopping_threshold"),
+    "delta": ("icp", "delta"),
+    "icp-max-distance": ("icp", "max_distance"),
+    "icp-max-angle": ("icp", "max_angle"),
+    "weighting": ("icp", "weighting"),
+    "factor": ("icp", "factor"),
+    "initialize_identity": ("icp", "initialize_identity"),
+    "fallback_mode": ("icp", "fallback_mode"),
+    "fallback-max-distance": ("icp", "fallback_max_distance"),
+    "fallback-max-angle": ("icp", "fallback_max_angle"),
+    "min_radius": ("map", "min_radius"),
+    "max_radius": ("map", "max_radius"),
+    "max_angle": ("map", "max_angle"),
+    "map-max-distance": ("map", "max_distance"),
+    "map-max-angle": ("map", "map_max_angle"),
+    "unstable_age": ("map", "unstable_age"),
+    "confidence_mode": ("map", "confidence_mode"),
+    "confidence_threshold": ("map", "confidence_threshold"),
+    "p_stable": ("map", "p_stable"),
+    "p_prior": ("map", "p_prior"),
+    "sigma_angle": ("map", "sigma_angle"),
+    "sigma_distance": ("map", "sigma_distance"),
+    "use_stability": ("map", "use_stability"),
+    "update_always": ("map", "update_always"),
+    "weighting_scheme": ("map", "weighting_scheme"),
+    "averaging_scheme": ("map", "averaging_scheme"),
+    "submap-dimension": ("map", "submap_dimension"),
+    "submap-extent": ("map", "submap_extent"),
+    "close-loops": ("loop", "enabled"),
+    "loop-residual-threshold": ("loop", "residual_threshold"),
+    "loop-valid-threshold": ("loop", "valid_threshold"),
+    "loop-outlier-threshold": ("loop", "outlier_threshold"),
+    "loop-search-distance": ("loop", "search_distance"),
+    "loop-min-verifications": ("loop", "min_verifications"),
+    "loop-min-trajectory-distance": ("loop", "min_trajectory_distance"),
+    "max_loop_closure_distance": ("loop", "max_loop_closure_distance"),
+    "compose_rendering": ("loop", "compose_rendering"),
+    "loop-min-valid-ratio": ("loop", "min_valid_ratio"),
+    "loop-max-outlier-ratio": ("loop", "max_outlier_ratio"),
+    "loop-max-increment-difference": ("loop", "max_increment_difference"),
+    "loop-residual-margin": ("loop", "residual_margin"),
+    "loop-delta-timestamp": ("loop", "delta_timestamp"),
+    "loop-search-levels": ("loop", "search_levels"),
+    "loop-verify-view-fraction": ("loop", "verify_view_fraction"),
+    "use_filtered_vertexmap": ("preprocess", "use_filtered_vertexmap"),
+    "bilateral_sigma_range": ("preprocess", "bilateral_sigma_range"),
+    "model_path": ("semantic", "model_path"),
+    "approach": ("", "approach"),
+}
+
+
+def parse_parameter_xml(path: str) -> Dict[str, Any]:
+    """Parse the reference's ``<config><param name=.. type=..>value</param>
+    </config>`` format into a dict."""
+    root = ET.parse(path).getroot()
+    out: Dict[str, Any] = {}
+    for node in root.iter("param"):
+        name = node.attrib["name"]
+        cast = _XML_CASTS.get(node.attrib.get("type", "string"), str)
+        out[name] = cast(node.text or "")
+    return out
+
+
+def config_from_xml(path: str, base: SumaConfig | None = None) -> SumaConfig:
+    """A SumaConfig from a reference-format XML file: the parameters of
+    ``_XML_MAP`` replace the fields of ``base`` (default ``SumaConfig()``);
+    other names are ignored."""
+    cfg = base or SumaConfig()
+    sections: Dict[str, Dict[str, Any]] = {}
+    top: Dict[str, Any] = {}
+    for name, value in parse_parameter_xml(path).items():
+        if name not in _XML_MAP:
+            continue
+        section, fname = _XML_MAP[name]
+        if section == "":
+            top[fname] = value
+        else:
+            sections.setdefault(section, {})[fname] = value
+    for section, kv in sections.items():
+        cfg = replace(cfg, **{section: replace(getattr(cfg, section), **kv)})
+    if top:
+        cfg = replace(cfg, **top)
+    return cfg
+
+
+def sweep(cfg: SumaConfig, grid: Dict[str, List[Any]]) -> Iterator[SumaConfig]:
+    """Parameter-sweep iterator over dotted field paths, e.g.
+    ``sweep(cfg, {"icp.factor": [0.25, 0.5], "map.p_stable": [0.6]})``."""
+    keys = list(grid.keys())
+    for combo in itertools.product(*(grid[k] for k in keys)):
+        out = cfg
+        for key, value in zip(keys, combo):
+            parts = key.split(".")
+            if len(parts) == 1:
+                out = replace(out, **{parts[0]: value})
+            else:
+                section = getattr(out, parts[0])
+                out = replace(out, **{parts[0]: replace(
+                    section, **{parts[1]: value})})
+        yield out
+
+
+def asdict(cfg: SumaConfig) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)

@@ -116,3 +116,25 @@ def loop_state_from_jax(src, dst):
     dst.posegraph = posegraph_from_jax(src.posegraph.poses(),
                                        src.posegraph._edges)
     return dst
+
+
+def spill_from_jax(src, dst, version: int | None = None):
+    """Copy a JAX ``SpillManager`` ``src`` (duck-typed: its chunks' host
+    rows and centroids, its page-in counter, its probe in flight) into the
+    port's ``SpillManager`` ``dst``. The port keys a probe to the map
+    version it scored, which the JAX package does not record: a JAX probe is
+    carried keyed to ``version`` (the ``map_version`` of the converted
+    ``SurfelSLAM``), and dropped when that is not given."""
+    from .core.spill import SpillChunk
+    from .device import AsyncFetch
+    dst.chunks = []
+    for c in src.chunks:
+        chunk = SpillChunk(np.array(c.f, np.float32), np.array(c.i, np.int32))
+        chunk.centroid = np.array(c.centroid, np.float32)
+        dst.chunks.append(chunk)
+    dst.chunks_paged_in = int(src.chunks_paged_in)
+    dst._probe = None
+    if src._probe is not None and version is not None:
+        dst._probe = (AsyncFetch(torch.as_tensor(np.array(src._probe))),
+                      int(version))
+    return dst

@@ -7,8 +7,9 @@ The JAX package compiles one device program per scan. Here the step runs
 eagerly; the Gauss-Newton loop, the fallback, the view refresh and the
 creation append read a few scalars to the host (``device.to_host``, counted
 in ``StepInfo.syncs``) to choose their branch. ``SurfelSLAM`` drives the step
-and, when enabled, the loop-closure state machine; host spill and chunked
-dispatch are not ported and are refused.
+and, when enabled, the loop-closure state machine and the host-RAM spill of
+the map arena (``core/spill``); chunked dispatch is not ported and is
+refused.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..utils.timing import Stopwatch
 from . import surfel_map as sm
 from .loop_closure import LoopCloser, OldMapRenderCache
 from .preprocessing import empty_maps, preprocess_scan
+from .spill import SpillManager
 
 
 class SlamState(NamedTuple):
@@ -233,20 +235,17 @@ def _unpack_step_info(vec: np.ndarray) -> HostStepInfo:
 
 
 class SurfelSLAM:
-    """Host-side loop: owns the device state, the pose log, the statistics
-    and (when enabled) the loop-closure state machine. Runs on the card
-    unless the caller names another device. Host spill
-    (``cfg.map.spill_enabled``) and chunked dispatch (``chunk_size > 1``)
-    are not ported; a configuration that asks for either is refused."""
+    """Host-side loop: owns the device state, the pose log, the statistics,
+    the host-RAM spill of the arena (``cfg.map.spill_enabled``) and (when
+    enabled) the loop-closure state machine. Runs on the card unless the
+    caller names another device. Chunked dispatch (``chunk_size > 1``) is
+    not ported and is refused."""
 
     # the LoopCloser uses the one-fetch verification/search programs here
     supports_fused_verify = True
 
     def __init__(self, cfg: SumaConfig, enable_loop_closure: bool | None = None,
                  pipeline_depth: int = 4, chunk_size: int = 1, device=None):
-        if cfg.map.spill_enabled:
-            raise NotImplementedError(
-                "host spill is not ported yet: disable cfg.map.spill_enabled")
         if chunk_size > 1:
             raise NotImplementedError(
                 "chunked dispatch is not ported yet: use chunk_size=1")
@@ -260,6 +259,7 @@ class SurfelSLAM:
         self.pipeline_depth = max(0, pipeline_depth)
         self._pending: "deque" = deque()
         self._dispatched = 0
+        self._spill_retry_blocks = 0
         # called with every finished scan's stats dict (pipelined draining
         # completes several scans per call, so return values alone
         # under-report)
@@ -279,6 +279,12 @@ class SurfelSLAM:
         self._loop = None
         self._old_cache = None
         self._verify_cache = None
+        self.spill = None
+        if cfg.map.spill_enabled:
+            self.spill = SpillManager(
+                cfg.map, chunk_blocks=cfg.map.spill_chunk_blocks,
+                spill_margin=cfg.map.spill_margin,
+                unspill_margin=cfg.map.unspill_margin)
         do_loops = cfg.loop.enabled if enable_loop_closure is None \
             else enable_loop_closure
         if do_loops and cfg.approach == "frame-to-model":
@@ -335,12 +341,31 @@ class SurfelSLAM:
         return sm.render_view(view, self._tensor(pose), self.cfg.model,
                               self.cfg.map, conf, thr, "old")
 
-    def compact_map(self) -> None:
-        self.state = self.state._replace(
-            map=sm.compact(self.state.map, self.cfg.map))
+    def _set_map(self, new_map) -> None:
+        """Install a map that a page-in, spill or compaction produced."""
+        self.state = self.state._replace(map=new_map)
         self.map_version += 1
 
-    def _ready_old_cache(self):
+    def compact_map(self) -> None:
+        self._set_map(sm.compact(self.state.map, self.cfg.map))
+
+    def _page_in(self, center) -> None:
+        """Bring spilled chunks near ``center`` back onto the device, each
+        only if the creations of the scans that run before the next drain,
+        ``(1 + lag)`` images, still fit behind it (the JAX package pages in
+        up to the last block; ROADMAP section 3)."""
+        if self.spill is not None:
+            hw = self.cfg.data.height * self.cfg.data.width
+            st = self.spill.ensure_resident(
+                self.state.map, center,
+                headroom_rows=(1 + self._inflight()) * hw)
+            if st is not None:
+                self._set_map(st)
+
+    def _ready_old_cache(self, view_pose):
+        # the old map a revisit needs may have been paged out: bring the
+        # chunks near the view back before rendering it
+        self._page_in(np.asarray(view_pose)[:3, 3])
         if self._old_cache is None:
             self._old_cache = OldMapRenderCache(
                 build_view=self._build_old_view,
@@ -354,7 +379,7 @@ class SurfelSLAM:
         defaults to the drain count; dispatch-time callers pass their
         explicit dispatch count so that pre-dispatched and drain-time
         verification use identical ts thresholds."""
-        return self._ready_old_cache().view_for(
+        return self._ready_old_cache(view_pose).view_for(
             view_pose, self.timestamp if timestamp is None else timestamp,
             self.map_version)
 
@@ -374,12 +399,18 @@ class SurfelSLAM:
                 render_view=self._render_old_view,
                 delta_timestamp=self.cfg.loop.delta_timestamp,
                 motion_bound=12.0)
+        # no spill page-in here (unlike _ready_old_cache): this runs at
+        # DISPATCH time, before the drain's headroom test can make room, so a
+        # page-in here could fill the arena and drop creations. The chain's
+        # start (the candidate search) goes through old_view at lag 0 and
+        # pages the old map in there; during a chain the anchor stays near
+        # the vehicle, whose surroundings are never evicted (keep radius).
         return self._verify_cache.view_for(view_pose, timestamp,
                                            self.map_version)
 
     def render_old_maps(self, view_pose):
         """Cached old-(inactive-)map render at ``view_pose``."""
-        return self._ready_old_cache().render(
+        return self._ready_old_cache(view_pose).render(
             view_pose, self.timestamp, self.confidence_threshold(),
             self.map_version)
 
@@ -400,6 +431,8 @@ class SurfelSLAM:
                                          model_maps=model_maps)
         for i in range(min(len(new_poses), len(self.poses))):
             self.poses[i] = np.asarray(new_poses[i])
+        if self.spill is not None and self.spill.chunks:
+            self.spill.on_rebase(AsyncFetch(table).wait())
         self.map_version += 1
 
     def _conf_at(self, t: int) -> float:
@@ -463,18 +496,62 @@ class SurfelSLAM:
         # below-gate integration deferred the device rebase)
         info = info._replace(pose=self.frame_correction @ info.pose)
         lag = self._inflight()  # scans dispatched after this one
-        t0 = time.perf_counter()
+        t0 = [time.perf_counter()]
 
-        # compaction when the arena could overflow or a creation was
-        # dropped. In pipelined mode the fetched counters lag by ``lag``
-        # scans, so the headroom test widens by lag * hw (worst-case growth)
+        def lap(label):
+            t = time.perf_counter()
+            self.stopwatch.record(label, t - t0[0])
+            t0[0] = t
+
+        # near-capacity policy: first page far blocks to host RAM, then fall
+        # back to stream compaction. A non-zero drop count means the arena
+        # filled before the host got ahead of it: reclaim at once, so that
+        # at most one scan drops, and count what was lost. In pipelined mode
+        # the fetched counters lag by ``lag`` scans, so every headroom test
+        # widens by lag * hw (worst-case growth).
         cap = self.cfg.map.surfel_capacity
         hw = self.cfg.data.height * self.cfg.data.width
+        bs = self.cfg.map.effective_block_size
         n_dropped = info.n_dropped
         self.creations_dropped += n_dropped
         pose = info.pose
-        if info.map_count + (1 + lag) * hw > cap or n_dropped:
+        free_rows = cap - info.block_count * bs
+        headroom = (2 + lag) * hw
+        spilled = False
+        if self.spill is not None:
+            self._page_in(pose[:3, 3])
+            lap("host/page-in")
+            # a futile attempt (under pressure, nothing beyond the keep
+            # radius) must not repeat every scan: retry only after the arena
+            # grew by a chunk
+            if (free_rows < headroom or n_dropped) \
+                    and info.block_count >= self._spill_retry_blocks:
+                # the asynchronous probe pays only with scans in flight (its
+                # copy hides behind them); lag 0 scores at once, and active
+                # dropping always reclaims now
+                st = self.spill.maybe_spill(self.state.map, pose[:3, 3],
+                                            headroom_rows=headroom,
+                                            async_probe=(not n_dropped
+                                                         and lag > 0),
+                                            version=self.map_version)
+                if st is not None:
+                    self._set_map(st)  # maybe_spill compacts
+                    self._spill_retry_blocks = 0
+                    spilled = True
+                    lap("host/spill-out")
+                else:
+                    if not self.spill.probe_pending:
+                        # futile verdict (probe or synchronous path): do not
+                        # score again until the arena grows a chunk; while
+                        # the probe is in flight, leave the threshold unset
+                        # so that its verdict is read next scan
+                        self._spill_retry_blocks = (info.block_count
+                                                    + self.spill.chunk_blocks)
+                    lap("host/spill-probe")
+        if not spilled and (info.map_count + (1 + lag) * hw > cap
+                            or n_dropped):
             self.compact_map()
+        lap("host/spill-compact")
         self.poses.append(pose)
         if len(self.poses) > 1:
             self.trajectory_distances.append(
@@ -494,7 +571,7 @@ class SurfelSLAM:
             "surfels-created": info.n_created,
             "creations-dropped": n_dropped,
         }
-        self.stopwatch.record("host/bookkeep", time.perf_counter() - t0)
+        lap("host/bookkeep")
         if self._loop is not None:
             loop_stats = self._loop.on_scan(self, info, lag=self._inflight())
             stats.update(loop_stats)

@@ -54,6 +54,22 @@ def default_world(seed: int = 0, n_boxes: int = 24, extent: float = 45.0,
     return World(boxes=tuple(boxes))
 
 
+def rich_world() -> World:
+    """The world of the forced-spill circle (``tests/test_spill.py``): two
+    rings of boxes (8 m and 24 m) flanking the 16 m circle, so that a 12 m
+    sensor always has structure to track."""
+    rng = np.random.default_rng(1)
+    boxes = []
+    for ring_r, nb in ((8.0, 8), (24.0, 16)):
+        for i in range(nb):
+            a = 2 * np.pi * i / nb + rng.uniform(-0.15, 0.15)
+            sz = float(rng.uniform(3.5, 6.0))
+            boxes.append(Box((float(ring_r * np.cos(a)),
+                              float(ring_r * np.sin(a)), float(sz / 2 - 1.8)),
+                             (2.5, 2.5, sz), 50))
+    return World(boxes=tuple(boxes))
+
+
 class SimScan(NamedTuple):
     points: torch.Tensor      # [N, 3] sensor frame
     labels: torch.Tensor      # [N] int32

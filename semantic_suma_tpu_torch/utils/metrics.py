@@ -1,6 +1,8 @@
 """KITTI odometry evaluation metrics (numpy only; counterpart of
 ``semantic_suma_tpu/utils/metrics.py``): the devkit's relative segment
-errors and the aligned absolute trajectory error."""
+errors, their averages and per-length / per-speed tables, the aligned
+absolute trajectory error, and :func:`evaluate`, the summary the CLI
+prints."""
 
 from __future__ import annotations
 
@@ -65,6 +67,42 @@ def calc_sequence_errors(gt: np.ndarray, est: np.ndarray) -> List[SegmentError]:
     return errors
 
 
+def average_errors(errors: List[SegmentError]) -> tuple[float, float]:
+    """(t_rel %, r_rel deg per 100 m) devkit-style averages."""
+    if not errors:
+        return float("nan"), float("nan")
+    t = float(np.mean([e.t_err for e in errors])) * 100.0
+    r = float(np.mean([e.r_err for e in errors])) * 180.0 / np.pi * 100.0
+    return t, r
+
+
+def errors_by_length(errors: List[SegmentError]) -> dict:
+    """Per-segment-length table: length -> {t_rel %, r_rel deg/100m,
+    count}."""
+    out = {}
+    for length in SEGMENT_LENGTHS:
+        sub = [e for e in errors if e.length == length]
+        if not sub:
+            continue
+        t, r = average_errors(sub)
+        out[f"{length:.0f}m"] = {"t_rel_percent": t,
+                                 "r_rel_deg_per_100m": r,
+                                 "count": len(sub)}
+    return out
+
+
+def errors_by_speed(errors: List[SegmentError], bin_mps: float = 2.0) -> dict:
+    """Per-speed table: speed bucket (m/s, binned every ``bin_mps``) ->
+    {t_rel %, r_rel deg/100m, count}."""
+    out = {}
+    for b in sorted({int(e.speed // bin_mps) for e in errors}):
+        sub = [e for e in errors if int(e.speed // bin_mps) == b]
+        t, r = average_errors(sub)
+        out[f"{b * bin_mps:.0f}-{(b + 1) * bin_mps:.0f}m/s"] = {
+            "t_rel_percent": t, "r_rel_deg_per_100m": r, "count": len(sub)}
+    return out
+
+
 def ate_rmse(gt: np.ndarray, est: np.ndarray, align: bool = True) -> float:
     """Absolute trajectory error RMSE over positions, with optional SE(3)
     (Umeyama, no scale) alignment."""
@@ -82,3 +120,29 @@ def ate_rmse(gt: np.ndarray, est: np.ndarray, align: bool = True) -> float:
         r = (u @ s @ vt).T
         p_est = (r @ x.T).T + mu_g
     return float(np.sqrt(np.mean(np.sum((p_est - p_gt) ** 2, axis=-1))))
+
+
+def evaluate(gt: np.ndarray, est: np.ndarray,
+             breakdown: bool = False) -> dict:
+    """Evaluation summary: devkit t_rel / r_rel, aligned and unaligned ATE,
+    the final-position error relative to the first pose, the number of
+    segments and the path length. ``breakdown=True`` adds the
+    per-segment-length and per-speed tables."""
+    errors = calc_sequence_errors(gt, est)
+    t_rel, r_rel = average_errors(errors)
+    n = min(len(gt), len(est))
+    out = {
+        "t_rel_percent": t_rel,
+        "r_rel_deg_per_100m": r_rel,
+        "ate_rmse_m": ate_rmse(gt, est),
+        "ate_rmse_noalign_m": ate_rmse(gt, est, align=False),
+        "final_error_m": float(np.linalg.norm(
+            (np.linalg.inv(gt[0]) @ gt[n - 1])[:3, 3]
+            - (np.linalg.inv(est[0]) @ est[n - 1])[:3, 3])),
+        "num_segments": len(errors),
+        "length_m": float(trajectory_distances(gt[:n])[-1]),
+    }
+    if breakdown:
+        out["by_length"] = errors_by_length(errors)
+        out["by_speed"] = errors_by_speed(errors)
+    return out

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``semantic_suma_tpu_torch`` and every one
-of its modules loads neither JAX nor the JAX package, and no source of the
-port (nor ``chip_smoke.py``) imports them."""
+of its modules loads neither JAX nor the JAX package, no source of the port
+(nor ``chip_smoke.py``) imports them, and a whole CLI run (spill, KITTI
+files, evaluation, the stats log and the PLY exports) loads neither."""
 import ast
 import json
 import os
@@ -55,3 +56,60 @@ def test_sources_import_no_jax():
                 continue
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
     assert bad == []
+
+
+# the modules of the headless entry point and what it drives
+ENTRY_MODULES = (
+    "semantic_suma_tpu_torch.cli",
+    "semantic_suma_tpu_torch.core.spill",
+    "semantic_suma_tpu_torch.io.kitti",
+    "semantic_suma_tpu_torch.io.kitti_export",
+    "semantic_suma_tpu_torch.utils.eventlog",
+    "semantic_suma_tpu_torch.utils.scan_accumulator",
+    "semantic_suma_tpu_torch.tools.make_results",
+)
+
+
+def test_entry_modules_are_covered():
+    assert set(ENTRY_MODULES) <= set(_modules())
+    assert (PKG / "configs" / "synthetic_loop.xml").is_file()
+
+
+def test_cli_run_loads_no_jax(tmp_path):
+    """``cli.main`` over a small KITTI directory and a synthetic run, in a
+    fresh interpreter: every module it loaded is JAX-free."""
+    xml = tmp_path / "small.xml"
+    xml.write_text(
+        '<config><param name="data_width" type="integer">120</param>'
+        '<param name="data_height" type="integer">24</param>'
+        '<param name="model_width" type="integer">120</param>'
+        '<param name="model_height" type="integer">24</param></config>')
+    common = ["--config", str(xml), "--no-loop-closure", "--surfel-capacity",
+              str(1 << 15), "--active-capacity", str(1 << 13)]
+    seq = tmp_path / "seq"
+    code = (
+        "import json, sys\n"
+        "from semantic_suma_tpu_torch import cli\n"
+        "from semantic_suma_tpu_torch.config import DataConfig\n"
+        "from semantic_suma_tpu_torch.io.kitti_export import "
+        "export_synthetic_sequence\n"
+        f"export_synthetic_sequence({str(seq)!r}, 3, "
+        "DataConfig(width=120, height=24), step=1.0, device='cpu')\n"
+        f"assert cli.main(['--cpu', 'run', '--dataset', {str(seq)!r}, "
+        f"'--eval'] + {common!r}) == 0\n"
+        f"assert cli.main(['--cpu', 'run', '--synthetic', '3', '--stats-json',"
+        f" {str(tmp_path / 's.jsonl')!r}, '--save-map', "
+        f"{str(tmp_path / 'm.ply')!r}, '--save-cloud', "
+        f"{str(tmp_path / 'c.ply')!r}] + {common!r}) == 0\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for m in ("semantic_suma_tpu_torch.core.spill",
+              "semantic_suma_tpu_torch.io.kitti",
+              "semantic_suma_tpu_torch.utils.eventlog",
+              "semantic_suma_tpu_torch.utils.scan_accumulator"):
+        assert m in loaded
+    assert [m for m in loaded if _forbidden(m)] == []

@@ -14,7 +14,8 @@ bilateral filter on.
   does from itself when its input moves by one ulp (a Gauss-Newton loop that
   stops at its iteration cap amplifies rounding), so the free run is held
   only on the final map count, within 0.5%.
-* ``SurfelSLAM`` refuses spill, chunked dispatch, and a missing GPU.
+* ``SurfelSLAM`` builds a spill manager when asked, and refuses chunked
+  dispatch and a missing GPU.
 """
 import dataclasses
 
@@ -196,9 +197,11 @@ def test_map_maintenance_matches_jax(run):
 
 def test_surfel_slam_refuses_unported_paths():
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError):
-        tp.SurfelSLAM(cfg.replace(map=dataclasses.replace(
-            cfg.map, spill_enabled=True)), device="cpu")
+    # spill is ported: asked for, ``SurfelSLAM`` builds a spill manager
+    spilling = tp.SurfelSLAM(cfg.replace(map=dataclasses.replace(
+        cfg.map, spill_enabled=True)), device="cpu")
+    assert spilling.spill is not None and not spilling.spill.chunks
+    assert tp.SurfelSLAM(cfg, device="cpu").spill is None
     with pytest.raises(NotImplementedError):
         tp.SurfelSLAM(cfg, chunk_size=4, device="cpu")
     # loop closure is ported: asked for either way, ``SurfelSLAM`` builds one
