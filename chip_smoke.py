@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the exit code is non-zero:
+Phases (the order of the run is given after the list); any failure raises
+and the exit code is non-zero:
   1. build every CUDA source of ``semantic_suma_tpu_torch/csrc`` with nvcc
      for sm_90a (one process per source, in parallel), then measure the
      card's floors: the replayed-graph time of an empty kernel
@@ -75,11 +76,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      45, a chunk paged back in, a closure, at most 1% of the creations
      dropped, the final position within 0.5 m of that of the same scans with
      spill off on a 2^21-row arena; the spill-out, page-in and probe laps
-     printed.
-Each of phases 5, 8, 9 and 10 to 12 counts the kernels' launches from zero
-just before its run and reads them just after. It prints the card's name and
-power limit, one ``{"kernels": [...]}`` line with a record for kernel A and
-for kernel B at each shape that a path launched (``launches`` is the sum
+     printed;
+ 13. the segmenter's two versioned networks (``weights/segmenter_synth_mid``
+     and ``_full``) at 1x64x928 on one rendered scan, the card's logits
+     against a CPU copy's: label agreement >= 0.99 on valid pixels; the ms
+     of a call by stage (projection, network, KNN vote + labels), its peak
+     memory, and no host sync in a call;
+ 14. kernel C (KNN label vote) against its plain version at 64x900 on two
+     random inputs (forced depth ties, +-inf, NaN, all-invalid rows, ties
+     across the wrap seam) and on the mid network's output of phase 13, on
+     consecutive calls and after CUDA-graph replays: exactly equal;
+ 15. both networks' mIoU on the 12 held-out synthetic scans of their
+     ``.json``, each within 0.03 of the recorded value;
+ 16. the segmenter in the loop (``bench.py:217-242``): the mid network
+     labels each of 8 warm-up + 60 timed scans for ``process_scan_async``
+     at the bench configuration; scans/s on the host clock, one vote and
+     two projections a scan, no dropped creation;
+ 17. the KITTI file path with the network's labels: 20 exported scans,
+     ``cli run --dataset ... --segmenter-weights ... --no-gt-labels
+     --eval``, ATE under 0.01 m.
+Phase 10 runs the segmenter and segmenter-full rows as well (each within
+twice the JAX package's round-5 row, no dropped creation). Phases 13 to 15
+run right after phase 3, phases 16 and 17 last. Each of phases 5, 8, 9, 10
+to 12, 16 and 17 counts the kernels' launches from zero just before its run
+and reads them just after. It prints the card's name and power limit, one
+``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
+shape that a path launched and for kernel C (``launches`` is the sum
 over the paths, ``launches_by_path`` the parts; the two shapes that no
 path launches, a KITTI scan's projection (phase 3) and the two-stream render
 (phases 3 and 8), are listed in a ``{"held_off_path": [...]}`` line with 0
@@ -93,6 +115,8 @@ replayed; the time of eager calls from Python is printed beside them. A
 kernel's bound is the largest of the times its bytes, its arithmetic and
 (kernel A) its exponentials or (kernel B) its unavoidable atomics need at
 the card's peak rates; every one of them lies under ``launch_floor_ms``.
+No single PyTorch call computes kernel C's vote: its ``library_ms`` is
+null.
 ``--profile-scans N`` traces N more scans after the main path with
 ``torch.profiler`` and prints the device time by kernel and the idle share,
 and does the same for N more scans of the loop path.
@@ -105,6 +129,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -925,18 +950,22 @@ def _count_solves(lc) -> dict:
 
 def _zero_launch_counts():
     from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
+    from semantic_suma_tpu_torch.ops.knn import knn_clean_image
     from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
     bilateral_filter.launches = 0
     zbuffer_cells.launches = 0
     zbuffer_cells.launches_by_shape = {}
+    knn_clean_image.launches = 0
 
 
 def _read_launch_counts() -> dict:
     from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
+    from semantic_suma_tpu_torch.ops.knn import knn_clean_image
     from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
     return {"bilateral_filter": bilateral_filter.launches,
             "zbuffer_cells": zbuffer_cells.launches,
-            "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape)}
+            "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
+            "knn_clean_image": knn_clean_image.launches}
 
 
 def phase_loop(dev, floors, profile_scans: int = 0):
@@ -1201,16 +1230,17 @@ def phase_loop_noisy(dev, sigma: float = NOISY_SIGMA_M,
 # JAX package's round-5 row of RESULTS.md (its own spread over rounds 3 to 5
 # fits in that band). (ATE m, t_rel %) limits; None: not held
 LEDGER_LIMITS = {"odometry": (0.0052, 0.0110), "noisy": (0.0424, 0.0800),
-                 "loop": (0.0090, None)}
+                 "loop": (0.0090, None), "segmenter": (0.0062, 0.0150),
+                 "segmenter-full": (0.0062, 0.0148)}
 LEDGER_MIN_CLOSURES = 20   # the JAX package's row: 41
 
 
 def phase_cli_ledger(dev):
-    """The odometry, noisy and loop rows of the accuracy ledger through
-    ``cli.main`` in this process, at the CLI's own sizing (64x900, 2^21-row
-    arena, 2^18-row view, spill on, bilateral filter off), each row's launch
-    counters zeroed just before it and read just after. Returns the counts
-    by row."""
+    """The odometry, noisy, loop, segmenter and segmenter-full rows of the
+    accuracy ledger through ``cli.main`` in this process, at the CLI's own
+    sizing (64x900, 2^21-row arena, 2^18-row view, spill on, bilateral
+    filter off), each row's launch counters zeroed just before it and read
+    just after. Returns the counts by row."""
     from semantic_suma_tpu_torch.tools import make_results as mr
 
     counts, rows = {}, {}
@@ -1235,6 +1265,8 @@ def phase_cli_ledger(dev):
               f"probes ({sp.get('futile')} futile, {sp.get('stale')} stale)"
               + (f"; closures {row['loop_closures']}" if name == "loop"
                  else "")
+              + (f"; held-out mIoU of the weights {row['val_miou']}"
+                 if "val_miou" in row else "")
               + f"; kernel launches {counts['cli_' + name]}")
     print("[cli-ledger] the RESULTS-format table:\n" + mr.table(rows))
     bad = []
@@ -1244,7 +1276,7 @@ def phase_cli_ledger(dev):
             bad.append(f"{name}: ATE {r['ate_rmse_m']} m > {ate_lim}")
         if trel_lim is not None and not r["t_rel_percent"] <= trel_lim:
             bad.append(f"{name}: t_rel {r['t_rel_percent']} % > {trel_lim}")
-    for name in ("odometry", "loop"):
+    for name in ("odometry", "loop", "segmenter", "segmenter-full"):
         if rows[name]["creations_dropped"]:
             bad.append(f"{name}: {rows[name]['creations_dropped']} creations "
                        "dropped")
@@ -1452,6 +1484,374 @@ def phase_spill(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the segmenter: the two versioned networks, kernel C, mIoU, the in-loop row
+# ---------------------------------------------------------------------------
+
+# label agreement of the card's network with a CPU copy's, on valid pixels:
+# both compute in bfloat16 with float32 sums, in other orders
+NET_AGREEMENT_MIN = 0.99
+# the port's mIoU against the one recorded beside the weights: the port's
+# simulator draws its range noise from a torch.Generator, not JAX's keys
+MIOU_TOL = 0.03
+KITTI_SEGMENTER_SCANS = 20
+
+
+def _segmenter_scan(dev):
+    """One rendered 64x900 scan of the segmenter's world (30% of the boxes
+    cars, the ledger rows' ``--movable-fraction 0.3``)."""
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    cfg = DataConfig()
+    pose = circular_trajectory(1, radius=18.0, step=1.5, device=dev)[0]
+    return cfg, render_scan(default_world(seed=0, movable_fraction=0.3), pose,
+                            cfg)
+
+
+def _sync_warnings(fn) -> list:
+    """The synchronizing CUDA operations that ``fn`` makes, as CUDA sync
+    debug mode reports them (the mode's notice that it is a prototype is
+    not one)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    msgs = [str(w.message) for w in caught]
+    return [m for m in msgs if "synchroniz" in m and "prototype" not in m]
+
+
+def phase_segmenter(dev):
+    """The two versioned networks at full width (1x64x928 after the wrap
+    pad) on one rendered scan: the card's logits against a CPU copy's (the
+    plain path, bfloat16 on both), label agreement on valid pixels >= 0.99;
+    per network the time of a call split into projection, network and KNN
+    vote + ``labels_for_points`` (CUDA events, back-to-back calls), the
+    network's device time (one forward in a replayed CUDA graph), the peak
+    memory of a call, and that a call makes no host sync (CUDA sync debug
+    mode). Returns the class and depth images of the mid
+    network's call: kernel C's real input."""
+    from semantic_suma_tpu_torch.models.rangenet import make_input
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    from semantic_suma_tpu_torch.ops.knn import labels_for_points
+    from semantic_suma_tpu_torch.ops.projection import project_scan
+    from semantic_suma_tpu_torch.tools.make_results import SEGMENTER_WEIGHTS
+
+    cfg, scan = _segmenter_scan(dev)
+    pts = scan.points
+    zeros = torch.zeros_like(pts[:, 0])
+    real = None
+    for row, path in SEGMENTER_WEIGHTS.items():
+        t0 = time.perf_counter()
+        seg = Segmenter.load(str(path), cfg, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        cpu = Segmenter.load(str(path), cfg, device="cpu")
+        n_params = sum(p.numel() for p in seg.model.parameters())
+        res = project_scan(pts, remissions=zeros, cfg=cfg)
+        x = make_input(res.vertex_map, res.depth_map, res.remission,
+                       res.vertex_valid)[None]
+        got = seg.logits(x)[0]
+        t0 = time.perf_counter()
+        want = cpu.logits(x.cpu())[0]
+        t_cpu = time.perf_counter() - t0
+        valid = res.vertex_valid.cpu()
+        agree = float((got.argmax(-1).cpu() == want.argmax(-1))[valid]
+                      .float().mean())
+        diff = float((got.cpu() - want).abs().max())
+        depth = torch.linalg.vector_norm(pts, dim=-1)
+        px, py = res.point_px.clamp_min(0), res.point_py.clamp_min(0)
+        pv = res.point_px >= 0
+        stages = {
+            "projection": lambda: project_scan(pts, remissions=zeros,
+                                               cfg=cfg),
+            "network": lambda: seg.logits(x),
+            "knn+labels": lambda: labels_for_points(got, px, py, depth, pv,
+                                                    res.depth_map),
+            "call": lambda: seg(pts)}
+        ms = {k: _events_ms(f, 20, 3) for k, f in stages.items()}
+        # the network's device time: one forward captured and replayed
+        net_graph_ms = graph_ms(lambda: seg.logits(x), 50)
+        # a call reads nothing back to the host: its tensors go straight on
+        # to process_scan_async (bench.py:232); a read of one value shows
+        # that the detector sees a sync
+        if not _sync_warnings(lambda: pts[0, 0].item()):
+            raise AssertionError("CUDA sync debug mode reports no sync")
+        syncs = _sync_warnings(lambda: seg(pts))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        seg(pts)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[segmenter] {row} ({path.name}: {seg.model.stage_blocks} "
+              f"blocks, widths {seg.model.widths}, {n_params / 1e6:.1f} M "
+              f"parameters, loaded to the card in {t_load:.1f} s) at "
+              f"1x{cfg.height}x{cfg.width} (928 columns padded): card vs CPU "
+              f"label agreement {agree:.5f} on {int(valid.sum())} valid "
+              f"pixels (limit {NET_AGREEMENT_MIN}), max |logit difference| "
+              f"{diff:.4f} (|logits| up to {float(want.abs().max()):.1f}); "
+              f"CPU forward {t_cpu:.2f} s")
+        print(f"[segmenter] {row} ms a call (CUDA events, back-to-back): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; the network in a replayed graph {net_graph_ms:.3f} ms "
+              f"(device time); memory held {held / 2**20:.1f} MiB, peak of a "
+              f"call {peak / 2**20:.1f} MiB; host syncs in a call "
+              f"{len(syncs)}")
+        if syncs:
+            raise AssertionError(f"{row}: a segmenter call waits for the "
+                                 f"device: {syncs[:3]}")
+        if not agree >= NET_AGREEMENT_MIN:
+            raise AssertionError(f"{row}: card and CPU networks agree on "
+                                 f"{agree} of the valid pixels")
+        if real is None:
+            cls = torch.softmax(got, -1).argmax(-1).to(torch.int32)
+            real = (cls, res.depth_map)
+        del seg, cpu
+    return real
+
+
+def _knn_inputs(h, w, seed, dev):
+    """Random class and depth images with forced depth ties, +-inf, NaN,
+    two all-invalid rows (one the top edge) and ties across the wrap
+    seam."""
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 20, size=(h, w)).astype(np.int32)
+    depth = rng.uniform(2.0, 12.0, size=(h, w)).astype(np.float32)
+    depth[: h // 2] = np.round(depth[: h // 2] * 4) / 4     # forced ties
+    m = rng.uniform(size=(h, w))
+    depth[m < 0.05] = np.inf
+    depth[(m >= 0.05) & (m < 0.08)] = np.nan
+    depth[(m >= 0.08) & (m < 0.10)] = -np.inf
+    depth[[0, h // 3]] = np.inf
+    seam = [0, 1, w - 2, w - 1]
+    depth[:, seam] = 7.0 + rng.integers(0, 3, size=(h, 4)) * 0.25
+    cls[:, seam] = rng.integers(0, 3, size=(h, 4))
+    return (torch.from_numpy(cls).to(dev),
+            torch.from_numpy(depth.astype(np.float32)).to(dev))
+
+
+def phase_knn(dev, floors, real):
+    """Kernel C against its plain version at 64x900: two random inputs and
+    the real network output of a rendered scan, on consecutive calls and
+    after CUDA-graph replays; the labels must be exactly equal. Prints the
+    replayed-graph and eager ms, the plain version's ms and the bound."""
+    from semantic_suma_tpu_torch.ops.knn import (knn_clean_image,
+                                                 knn_clean_image_plain)
+
+    h, w = real[0].shape
+    inputs = [("random-1", *_knn_inputs(h, w, 1, dev)),
+              ("random-2", *_knn_inputs(h, w, 2, dev)),
+              ("scan", *real)]
+    checks, changed = 0, {}
+    for name, cls, depth in inputs + inputs[:1]:
+        got = knn_clean_image(cls, depth)
+        want = knn_clean_image_plain(cls, depth)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"knn {name}: {int((got != want).sum())} "
+                                 "labels differ from the plain version")
+        changed[name] = int((want != cls).sum())
+        checks += 1
+    # a replayed graph on new inputs copied into its static buffers
+    s_cls, s_depth = inputs[0][1].clone(), inputs[0][2].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s_out = knn_clean_image(s_cls, s_depth)
+    for name, cls, depth in inputs[1:] + inputs[:1]:
+        s_cls.copy_(cls)
+        s_depth.copy_(depth)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(s_out, knn_clean_image_plain(cls, depth)):
+            raise AssertionError(f"knn {name}: wrong after a graph replay")
+        checks += 1
+    cls, depth = real
+    ms, eager_ms = time_ms(lambda: knn_clean_image(cls, depth), 2000)
+    plain_ms = _events_ms(lambda: knn_clean_image_plain(cls, depth), 20, 2)
+    if not torch.equal(knn_clean_image(cls, depth),
+                       knn_clean_image_plain(cls, depth)):
+        raise AssertionError("knn: wrong after the timed calls")
+    # the work: class and range read once, the label written once; and for
+    # every candidate in the image's rows a subtraction, an absolute value
+    # and two comparisons (finite, cutoff)
+    in_rows = sum(min(h, h - dy) - max(0, -dy) for dy in range(-2, 3)) * w * 5
+    nbytes = h * w * (4 + 4 + 4)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32": in_rows * 4 / FP32_FLOP_PER_S * 1e3}
+    bound_ms = max(terms.values())
+    print(f"[knn] kernel C: {checks} comparisons exact (labels changed by the "
+          f"vote: {changed}); kernel {ms:.5f} ms in a replayed graph (eager "
+          f"calls {eager_ms:.5f} ms), plain {plain_ms:.3f} ms (eager), "
+          f"library none (no PyTorch call computes the vote), bound "
+          f"{bound_ms:.6f} ms (bytes {terms['bytes']:.6f} for {nbytes} B, "
+          f"fp32 {terms['fp32']:.6f}), launch floor "
+          f"{floors['launch_floor_ms']:.5f} ms")
+    return {"name": "knn_clean_image", "route": "cuda",
+            "source": "semantic_suma_tpu_torch/csrc/knn.cu",
+            "replaces": "semantic_suma_tpu/models/rangenet.py:208",
+            "max_abs_err": 0, "ms": ms, "eager_ms": eager_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms == terms["bytes"]
+            else "operations", "library_ms": None}
+
+
+def phase_miou(dev):
+    """Both networks' mIoU on the port's 12 held-out scans (scans 96 to 107
+    of ``synthetic_dataset(cfg, 108, seed=0, movable_fraction=0.3)``, the
+    split their ``.json`` names), each within 0.03 of the recorded one."""
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.models.labels import TRAIN_CLASSES
+    from semantic_suma_tpu_torch.models.segmenter import (Segmenter,
+                                                          evaluate_miou,
+                                                          synthetic_dataset)
+    from semantic_suma_tpu_torch.tools.make_results import (SEGMENTER_WEIGHTS,
+                                                            val_miou)
+    cfg = DataConfig()
+    t0 = time.perf_counter()
+    imgs, labs, vals = (a[96:] for a in synthetic_dataset(
+        cfg, 108, seed=0, movable_fraction=0.3, device=dev))
+    t_data = time.perf_counter() - t0
+    bad = []
+    for row, path in SEGMENTER_WEIGHTS.items():
+        seg = Segmenter.load(str(path), cfg, device=dev)
+        t0 = time.perf_counter()
+        m, per_class = evaluate_miou(seg, imgs, labs, vals)
+        ref = val_miou(row)
+        print(f"[miou] {row}: {m:.4f} on {imgs.shape[0]} held-out scans "
+              f"(recorded {ref}, limit +-{MIOU_TOL}); IoU by raw id "
+              + ", ".join(f"{TRAIN_CLASSES[c]}: {v:.3f}"
+                          for c, v in sorted(per_class.items()))
+              + f"; {time.perf_counter() - t0:.2f} s, scans made in "
+              f"{t_data:.2f} s")
+        if not abs(m - ref) <= MIOU_TOL:
+            bad.append(f"{row}: mIoU {m} against {ref}")
+        del seg
+    if bad:
+        raise AssertionError("miou: " + "; ".join(bad))
+
+
+def phase_segmenter_loop(dev):
+    """``bench.py:217-242``: the mid network labels every scan and
+    ``process_scan_async`` takes its tensors (no host read between them) at
+    the bench configuration (2^21-row arena, 2^18-row view, two-image fresh
+    region, unfiltered, loop closure off), 8 warm-up + 60 timed scans of
+    the main path's world, scans/s on the host clock. Launch counters are
+    zeroed just before the drive and read just after."""
+    from semantic_suma_tpu_torch.config import MapConfig, SumaConfig
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    from semantic_suma_tpu_torch.tools.make_results import SEGMENTER_WEIGHTS
+    from semantic_suma_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = SumaConfig(map=MapConfig(surfel_capacity=1 << 21,
+                                   active_capacity=1 << 18,
+                                   min_fresh_rows=2 * 64 * 900,
+                                   max_poses=8192))
+    n_warm, n_timed = 8, 60
+    n = n_warm + n_timed
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n, radius=18.0, step=1.5, device=dev)
+    scans = [render_scan(world, gt[i], cfg.data) for i in range(n)]
+    seg = Segmenter.load(str(SEGMENTER_WEIGHTS["segmenter"]), cfg.data,
+                         device=dev)
+    slam = SurfelSLAM(cfg, enable_loop_closure=False, device=dev)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    for i, s in enumerate(scans):
+        labels, probs = seg(s.points)
+        if i == n_warm:
+            slam.flush()
+            t0 = time.perf_counter()
+        slam.process_scan_async(s.points, labels, probs, s.valid)
+    slam.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _read_launch_counts()
+    est = slam.trajectory()
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("segmenter loop: non-finite poses")
+    ate = ate_rmse(gt.cpu().numpy().astype(np.float64), est)
+    print(f"[segmenter-loop] SurfelSLAM + mid network per scan "
+          f"(process_scan_async), {n} scans 64x900 ({n_warm} warm-up + "
+          f"{n_timed} timed): {n_timed / dt:.2f} scans/s, "
+          f"{dt / n_timed * 1e3:.2f} ms/scan (host clock); aligned ATE "
+          f"{ate:.5f} m, map surfels {slam.statistics[-1]['map-count']}, "
+          f"dropped creations {slam.creations_dropped}; launches: kernel C "
+          f"{counts['knn_clean_image']}, kernel B by (candidates, flags) "
+          f"{sorted(counts['zbuffer_cells_by_shape'].items())}")
+    proj = counts["zbuffer_cells_by_shape"].get((64 * 900, 0), 0)
+    if counts["knn_clean_image"] != n or proj != 2 * n:
+        raise AssertionError(f"segmenter loop: kernel C ran "
+                             f"{counts['knn_clean_image']} times and the "
+                             f"projection {proj} times over {n} scans")
+    if slam.creations_dropped:
+        raise AssertionError(f"segmenter loop: {slam.creations_dropped} "
+                             "creations dropped")
+    return counts
+
+
+def phase_cli_kitti_segmenter(dev):
+    """The KITTI file path with the network's labels: 20 exported scans of
+    the segmenter's world (30% cars, 1 m steps) and ``cli run --dataset ...
+    --segmenter-weights <mid> --no-gt-labels --eval``; one vote a scan, ATE
+    under 0.01 m. Launch counters are zeroed just before the run and read
+    just after."""
+    import contextlib
+    import io
+    import tempfile
+
+    from semantic_suma_tpu_torch import cli
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.io.kitti_export import \
+        export_synthetic_sequence
+    from semantic_suma_tpu_torch.io.simulation import default_world
+    from semantic_suma_tpu_torch.tools.make_results import (SEGMENTER_WEIGHTS,
+                                                            last_json)
+
+    n = KITTI_SEGMENTER_SCANS
+    with tempfile.TemporaryDirectory() as td:
+        seq = f"{td}/seq"
+        export_synthetic_sequence(
+            seq, n, DataConfig(),
+            world=default_world(seed=0, movable_fraction=0.3), step=1.0,
+            device=dev)
+        argv = ["run", "--dataset", seq, "--segmenter-weights",
+                str(SEGMENTER_WEIGHTS["segmenter"]), "--no-gt-labels",
+                "--eval"]
+        out, err = io.StringIO(), io.StringIO()
+        _zero_launch_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            if cli.main(argv) != 0:
+                raise AssertionError("cli run --dataset --segmenter-weights "
+                                     "failed")
+        torch.cuda.synchronize()
+        counts = _read_launch_counts()
+    run = last_json(out.getvalue())
+    summary = [line for line in err.getvalue().splitlines()
+               if "creations dropped" in line]
+    print(f"[cli-kitti-segmenter] {n} exported scans, labels from the mid "
+          f"network (--no-gt-labels): {out.getvalue().splitlines()[0]}; ATE "
+          f"{run['ate_rmse_m']:.6f} m, final error {run['final_error_m']:.4f}"
+          f" m; {summary[0] if summary else ''}; kernel C launches "
+          f"{counts['knn_clean_image']}")
+    if counts["knn_clean_image"] != n:
+        raise AssertionError(f"KITTI segmenter path: kernel C ran "
+                             f"{counts['knn_clean_image']} times for {n} "
+                             "scans")
+    if not run["ate_rmse_m"] <= KITTI_ATE_LIMIT_M:
+        raise AssertionError(f"KITTI segmenter path: ATE {run['ate_rmse_m']}"
+                             f" m > {KITTI_ATE_LIMIT_M} m")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-scans", type=int, default=0,
@@ -1478,6 +1878,9 @@ def main() -> int:
     floors = timed("floors", phase_floors, dev)
     rec_a = timed("bilateral", phase_bilateral, dev, floors)
     recs_b = timed("zbuffer", phase_zbuffer, dev, floors)
+    seg_image = timed("segmenter", phase_segmenter, dev)
+    rec_c = timed("knn", phase_knn, dev, floors, seg_image)
+    timed("miou", phase_miou, dev)
     timed("parity", phase_parity, dev)
     paths = {"main": timed("main", phase_main_path, dev, args.profile_scans)}
     timed("default", phase_default_path, dev)
@@ -1489,9 +1892,15 @@ def main() -> int:
     paths.update(ledger)
     paths["cli_kitti"] = timed("cli-kitti", phase_cli_kitti, dev)
     paths["spill"] = timed("spill", phase_spill, dev)
+    paths["segmenter_loop"] = timed("segmenter-loop", phase_segmenter_loop,
+                                    dev)
+    paths["cli_kitti_segmenter"] = timed(
+        "cli-kitti-segmenter", phase_cli_kitti_segmenter, dev)
     # launches: every path counted from zero over its own run and read right
     # after it; "launches" is their sum, "launches_by_path" the parts
     rec_a["launches_by_path"] = {k: v["bilateral_filter"]
+                                 for k, v in paths.items()}
+    rec_c["launches_by_path"] = {k: v["knn_clean_image"]
                                  for k, v in paths.items()}
     for rec in recs_b:
         shape = (rec["n"], rec["n_flags"])
@@ -1500,7 +1909,7 @@ def main() -> int:
             for k, v in paths.items()}
         rec.update(real.get(rec["shape"], {}))
     on_path, off_path = [], []
-    for rec in (rec_a, *recs_b):
+    for rec in (rec_a, *recs_b, rec_c):
         rec["launches"] = sum(rec["launches_by_path"].values())
         (on_path if rec["launches"] else off_path).append(rec)
     # a kernel of a path must have run on it; a shape that no path launches

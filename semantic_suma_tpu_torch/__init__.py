@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of the semantic surfel SLAM engine.
 
 A second implementation of ``semantic_suma_tpu`` for one NVIDIA H100: plain
-tensor code is PyTorch, and the kernels on the odometry and loop-closure paths
-(the range-image bilateral filter and the per-pixel z-buffer) are hand-written
-CUDA C++ under ``csrc/``, built at first use with ``nvcc`` for ``sm_90a``. The
-package never imports JAX; the JAX package stays the reference the tests hold
-it against.
+tensor code is PyTorch (the segmenter's convolutions go to cuDNN), and the
+kernels on the odometry, loop-closure and segmenter paths (the range-image
+bilateral filter, the per-pixel z-buffer and the KNN label vote) are
+hand-written CUDA C++ under ``csrc/``, built at first use with ``nvcc`` for
+``sm_90a``. The package never imports JAX; the JAX package stays the
+reference the tests hold it against.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version. The headless entry

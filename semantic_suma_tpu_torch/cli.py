@@ -11,11 +11,12 @@
 ``run`` goes to the GPU unless the top-level ``--cpu`` is given; without a
 GPU it fails rather than falling back to the CPU. The printed lines keep the
 JAX package's format (``processed N scans in ...``, then the evaluation
-JSON), so one parser reads both. Flags whose modules are not ported yet
-(``--segmenter-weights``, ``--save-checkpoint``, ``--resume``,
-``--sharded``, ``--save-viewer``, ``--plot-dir``) and the
-``train-segmenter`` command end the run with an error that names the
-missing module.
+JSON), so one parser reads both. ``--segmenter-weights`` labels every scan
+with the network (``models/segmenter``) instead of the simulator's or the
+files' labels. Flags whose modules are not ported yet
+(``--save-checkpoint``, ``--resume``, ``--sharded``, ``--save-viewer``,
+``--plot-dir``) and the ``train-segmenter`` command end the run with an
+error that names the missing module.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ import torch
 
 # flag -> the module of the JAX package it needs that the port lacks
 NOT_PORTED = {
-    "segmenter_weights": ("--segmenter-weights", "models/segmenter"),
     "save_checkpoint": ("--save-checkpoint", "utils/checkpoint"),
     "resume": ("--resume", "utils/checkpoint"),
     "sharded": ("--sharded", "parallel/sharding"),
@@ -139,6 +139,11 @@ def cmd_run(args) -> int:
 
     cfg = build_config(args)
     device = resolve_device("cpu" if args.cpu else None)
+    segmenter = None
+    if args.segmenter_weights:
+        from .models.segmenter import Segmenter
+        segmenter = Segmenter.load(args.segmenter_weights, cfg.data,
+                                   device=device)
 
     if args.synthetic:
         from .io.simulation import SimulationReader, default_world
@@ -152,10 +157,16 @@ def cmd_run(args) -> int:
 
         def get_scan(i):
             s = reader.read(i)
+            if segmenter is not None:
+                # labels from the network, not the simulator: the
+                # KITTIReader.cpp:173-200 contract on synthetic data (every
+                # ray goes in, invalid ones included, as in the JAX CLI)
+                labels, probs = segmenter(s.points)
+                return s.points, labels, probs, s.valid
             return s.points, s.labels, s.probs, s.valid
     else:
         from .io.kitti import KITTIReader
-        reader = KITTIReader(args.dataset,
+        reader = KITTIReader(args.dataset, segmenter=segmenter,
                              use_gt_labels=not args.no_gt_labels)
         gt = reader.gt_poses()
         count = reader.count()
@@ -302,7 +313,9 @@ def main(argv=None) -> int:
     runp.add_argument("--noise", type=float, default=0.0)
     runp.add_argument("--movable-fraction", type=float, default=0.0,
                       help="fraction of synthetic boxes labeled 'car'")
-    runp.add_argument("--segmenter-weights", help="not ported")
+    runp.add_argument("--segmenter-weights",
+                      help="label scans with this segmenter (a weights "
+                           "blob of either package)")
     runp.add_argument("--no-gt-labels", action="store_true")
     runp.add_argument("--export-poses")
     runp.add_argument("--stats-json",
@@ -334,8 +347,10 @@ def main(argv=None) -> int:
 
     args, rest = ap.parse_known_args(argv)
     if args.cmd == "train-segmenter":
-        ap.error("train-segmenter needs models/segmenter, which is not "
-                 "ported yet")
+        ap.error("train-segmenter needs the training half of "
+                 "models/segmenter (create_train_state, loss_fn, "
+                 "make_train_step, train_synthetic, train_kitti), which is "
+                 "not ported yet")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     for dest, (flag, module) in NOT_PORTED.items():

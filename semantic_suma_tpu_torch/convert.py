@@ -1,10 +1,11 @@
 """Carry state across from the JAX package: the simulated world, the SLAM
 state, the pose graph and the loop closer's host state, so both packages can
-start from the same mid-run point.
+start from the same mid-run point; and the segmenter's weights both ways.
 
 Nothing here imports JAX: the inputs are duck-typed (a JAX ``World``'s boxes,
 or a JAX ``SlamState`` / ``MapState`` whose leaves were turned into numpy
-arrays, e.g. with ``jax.tree.map(np.asarray, state)``).
+arrays, e.g. with ``jax.tree.map(np.asarray, state)``; flax variables as
+nested dicts of numpy arrays, as the weight files pickle them).
 """
 
 from __future__ import annotations
@@ -138,3 +139,60 @@ def spill_from_jax(src, dst, version: int | None = None):
         dst._probe = (AsyncFetch(torch.as_tensor(np.array(src._probe))),
                       int(version))
     return dst
+
+
+# ---------------------------------------------------------------------------
+# segmenter weights: flax variables <-> the port's RangeNet state dict. The
+# port's modules carry flax's names, so a key is the flax path with dots;
+# only the leaves are renamed and laid out again:
+#   params/.../Conv_i/kernel [kh, kw, in, out] <-> ...Conv_i.weight
+#       [out, in, kh, kw]
+#   params/.../ConvTranspose_i/kernel [1, 4, in, out] <-> ...weight
+#       [in, out, 1, 4], flipped along the width (flax does not flip)
+#   params/.../{bias, scale}, batch_stats/.../{mean, var}: unchanged
+# ---------------------------------------------------------------------------
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def rangenet_state_from_flax(variables) -> dict:
+    """The port's ``RangeNet`` state dict from flax variables (``params``
+    and ``batch_stats``, nested dicts of numpy arrays)."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, a in _flat(variables.get(coll, {})):
+            *mods, leaf = path
+            if leaf == "kernel":
+                if mods[-1].startswith("ConvTranspose"):
+                    a = a.transpose(2, 3, 0, 1)[..., ::-1]
+                else:
+                    a = a.transpose(3, 2, 0, 1)
+                leaf = "weight"
+            out[".".join(mods + [leaf])] = torch.from_numpy(
+                np.ascontiguousarray(a))
+    return out
+
+
+def flax_variables_from_rangenet(state_dict) -> dict:
+    """The reverse of :func:`rangenet_state_from_flax`: flax variables as
+    nested dicts of numpy arrays."""
+    out = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        *mods, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        if leaf == "weight":
+            if mods[-1].startswith("ConvTranspose"):
+                a = a[..., ::-1].transpose(2, 3, 0, 1)
+            else:
+                a = a.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        node = out["batch_stats" if leaf in ("mean", "var") else "params"]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return out

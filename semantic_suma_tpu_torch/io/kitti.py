@@ -1,11 +1,12 @@
 """KITTI odometry dataset I/O: velodyne scans, SemanticKITTI labels,
 calibration and poses (counterpart of ``semantic_suma_tpu/io/kitti.py``).
 
-Host numpy throughout; ``SurfelSLAM`` moves a scan to its device when it is
-dispatched. The reader parses the ``.bin`` files with numpy (the JAX
-package's optional native prefetch loader is not ported). Labels come from
-SemanticKITTI ``.label`` files, from a ``segmenter`` callable
-``(points, remissions) -> (labels, probs)``, or are absent (geometry only).
+Host numpy (a segmenter's tensors aside); ``SurfelSLAM`` moves a scan to
+its device when it is dispatched. The reader parses the ``.bin`` files with
+numpy (the JAX package's optional native prefetch loader is not ported).
+Labels come from SemanticKITTI ``.label`` files, from a ``segmenter`` callable
+``(points, remissions) -> (labels, probs)`` (tensors it returns are passed
+on as they are, on their device), or are absent (geometry only).
 """
 
 from __future__ import annotations
@@ -14,9 +15,12 @@ import os
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 class KittiScan(NamedTuple):
+    """A scan; ``labels`` and ``probs`` are tensors on the segmenter's
+    device when a segmenter that returns tensors labelled it."""
     points: np.ndarray      # [N, 3] float32
     remissions: np.ndarray  # [N] float32 (max-normalized)
     labels: np.ndarray      # [N] int32 raw SemanticKITTI ids (0 if none)
@@ -153,8 +157,14 @@ class KITTIReader:
             probs = np.where(labels > 0, 1.0, 0.0).astype(np.float32)
         elif self.segmenter is not None:
             lab, prob = self.segmenter(points, rem)
-            labels = np.asarray(lab, np.int32)
-            probs = np.asarray(prob, np.float32)
+            if isinstance(lab, torch.Tensor):
+                # a segmenter's tensors stay where it made them (on the GPU
+                # for a GPU segmenter): the pipeline takes them without a
+                # read of the device
+                labels, probs = lab.to(torch.int32), prob.to(torch.float32)
+            else:
+                labels = np.asarray(lab, np.int32)
+                probs = np.asarray(prob, np.float32)
         else:
             labels = np.zeros(n, np.int32)
             probs = np.ones(n, np.float32)

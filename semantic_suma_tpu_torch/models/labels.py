@@ -1,6 +1,6 @@
 """SemanticKITTI label table with display colours, the movable-class table
-and ``is_movable`` (counterpart of ``semantic_suma_tpu/models/labels.py``;
-the train-id tables come with the segmenter)."""
+and ``is_movable``, and the segmenter's train-id tables (counterpart of
+``semantic_suma_tpu/models/labels.py``)."""
 
 from __future__ import annotations
 
@@ -50,6 +50,10 @@ MOVABLE_CLASSES = (10, 11, 13, 15, 18, 20, 30, 31, 32)
 
 MAX_LABEL = 260
 
+# The 20-class training label set used by RangeNet++ (learning id order).
+TRAIN_CLASSES = (0, 10, 11, 15, 18, 20, 30, 31, 32, 40, 44, 48, 49, 50, 51,
+                 70, 71, 72, 80, 81)
+
 
 def _movable_lut() -> np.ndarray:
     lut = np.zeros((MAX_LABEL,), dtype=bool)
@@ -67,6 +71,32 @@ def _color_lut() -> np.ndarray:
 
 _MOVABLE_LUT = _movable_lut()
 _COLOR_LUT = _color_lut()
+
+# train id <-> raw label tables (host numpy; a device copy is made once per
+# device by ``_device_table``)
+_TRAIN_TO_RAW = np.array(TRAIN_CLASSES, dtype=np.int32)
+_RAW_TO_TRAIN = np.zeros((MAX_LABEL,), dtype=np.int32)
+for _i, _c in enumerate(TRAIN_CLASSES):
+    _RAW_TO_TRAIN[_c] = _i
+# moving classes map to their static counterparts for training
+for _mov, _stat in ((252, 10), (253, 30), (254, 32), (255, 16), (256, 31),
+                    (257, 13), (258, 18), (259, 20)):
+    if _stat in TRAIN_CLASSES:
+        _RAW_TO_TRAIN[_mov] = TRAIN_CLASSES.index(_stat)
+
+_device_tables: dict = {}
+
+
+def _device_table(name: str, device: torch.device) -> torch.Tensor:
+    """The table ``name`` on ``device``, uploaded on first use: a per-call
+    upload from pageable memory would make the host wait for the device."""
+    key = (name, device)
+    t = _device_tables.get(key)
+    if t is None:
+        host = _RAW_TO_TRAIN if name == "raw_to_train" else _TRAIN_TO_RAW
+        t = torch.as_tensor(host, device=device)
+        _device_tables[key] = t
+    return t
 
 # All movable ids are < 64, so membership is one shift of a 64-bit mask: no
 # lookup table has to live on the device.
@@ -89,3 +119,15 @@ def label_colors(labels: np.ndarray) -> np.ndarray:
     """RGB uint8 colours for display and export (host numpy)."""
     return _COLOR_LUT[np.clip(np.asarray(labels, dtype=np.int64), 0,
                               MAX_LABEL - 1)]
+
+
+def raw_to_train(labels: torch.Tensor) -> torch.Tensor:
+    """Raw SemanticKITTI ids -> train ids (int32; ids clipped to [0, 260))."""
+    idx = labels.to(torch.int64).clamp(0, MAX_LABEL - 1)
+    return _device_table("raw_to_train", labels.device)[idx]
+
+
+def train_to_raw(train_ids: torch.Tensor) -> torch.Tensor:
+    """Train ids -> raw SemanticKITTI ids (int32; ids clipped to the set)."""
+    idx = train_ids.to(torch.int64).clamp(0, len(TRAIN_CLASSES) - 1)
+    return _device_table("train_to_raw", train_ids.device)[idx]

@@ -1,15 +1,19 @@
-"""Accuracy ledger of the port: the odometry, noisy and loop rows of
-``scripts/make_results.py``, run through the port's CLI in this process.
+"""Accuracy ledger of the port: the odometry, noisy, loop, segmenter and
+segmenter-full rows of ``scripts/make_results.py``, run through the port's
+CLI in this process.
 
     python3 -m semantic_suma_tpu_torch.tools.make_results [--quick] [--cpu]
 
 Each row is one ``cli.main(["run", ...])`` with the arguments of the JAX
 package's ledger (150 scans, the noisy row with 2 cm range noise, the
 140-scan loop row with the gates of ``configs/synthetic_loop.xml`` at 1 m
-steps); ``--quick`` takes 60 and 80 scans, the loop row at 1.6 m steps, as
-the JAX tool does. It prints the RESULTS-format table and one JSON object
-with every row's numbers; it writes no file of the repo. Without ``--cpu``
-the runs go to the GPU.
+steps, the segmenter rows with 30% of the boxes cars, labelled by the
+versioned networks ``weights/segmenter_synth_{mid,full}.pkl``, whose
+held-out mIoU the row reads from the weights' ``.json``); ``--quick`` takes
+60 and 80 scans, the loop row at 1.6 m steps, as the JAX tool does (which
+trains a small network for its quick segmenter row instead). It prints the
+RESULTS-format table and one JSON object with every row's numbers; it
+writes no file of the repo. Without ``--cpu`` the runs go to the GPU.
 """
 
 from __future__ import annotations
@@ -27,7 +31,11 @@ from pathlib import Path
 
 LOOP_XML = Path(__file__).resolve().parent.parent / "configs" \
     / "synthetic_loop.xml"
-ROWS = ("odometry", "noisy", "loop")
+WEIGHTS = Path(__file__).resolve().parent.parent.parent / "weights"
+# segmenter row -> its versioned network
+SEGMENTER_WEIGHTS = {"segmenter": WEIGHTS / "segmenter_synth_mid.pkl",
+                     "segmenter-full": WEIGHTS / "segmenter_synth_full.pkl"}
+ROWS = ("odometry", "noisy", "loop", *SEGMENTER_WEIGHTS)
 
 _PROCESSED = re.compile(
     r"processed (\d+) scans in ([\d.]+)s \(([\d.]+) scans/s\)"
@@ -52,7 +60,19 @@ def row_args(name: str, quick: bool = False, stats_json: str | None = None):
         out = ["run", "--synthetic", str(n_loop), "--config", str(LOOP_XML),
                "--synthetic-step", "1.6" if quick else "1.0", "--eval"]
         return out + (["--stats-json", stats_json] if stats_json else [])
+    if name in SEGMENTER_WEIGHTS:
+        return ["run", "--synthetic", str(n_odo), "--movable-fraction", "0.3",
+                "--segmenter-weights", str(SEGMENTER_WEIGHTS[name]),
+                "--no-loop-closure", "--eval"]
     raise ValueError(f"unknown row {name!r}")
+
+
+def val_miou(name: str):
+    """The held-out mIoU recorded beside a segmenter row's weights, or
+    None."""
+    meta = Path(str(SEGMENTER_WEIGHTS[name]) + ".json")
+    return json.loads(meta.read_text()).get("val_miou") \
+        if meta.exists() else None
 
 
 def last_json(text: str) -> dict:
@@ -109,6 +129,8 @@ def run_row(name: str, cpu: bool = False, quick: bool = False) -> dict:
         row["call_s"] = time.perf_counter() - t0
         row["argv"] = argv
         row["stderr"] = err.getvalue()
+        if name in SEGMENTER_WEIGHTS:
+            row["val_miou"] = val_miou(name)
         if stats:
             with open(stats) as f:
                 scans = [json.loads(line) for line in f if line.strip()]
@@ -128,6 +150,9 @@ def table(rows: dict) -> str:
     for name, r in rows.items():
         sps = r.get("steady_scans_per_sec") or r.get("scans_per_sec")
         extra = f"{sps:.1f} scans/s" if name != "noisy" and sps else ""
+        if r.get("val_miou") is not None:
+            extra = ", ".join([f"mIoU={r['val_miou']:.3f}"]
+                              + ([extra] if extra else []))
         if name == "loop":
             extra = ", ".join([f"loops={r.get('loop_closures', 0)}"]
                               + ([extra] if extra else []))

@@ -14,7 +14,9 @@ configuration has it), 12 noise-free synthetic scans:
 * the stats JSONL records and the evaluation JSON carry the JAX CLI's keys;
 * ``eval`` of the exported file gives ``run --eval``'s numbers;
 * every flag whose module is not ported ends the run with an error naming
-  that module, and without ``--cpu`` and without a GPU ``run`` raises.
+  that module, and without ``--cpu`` and without a GPU ``run`` raises;
+* ``--segmenter-weights`` labels every scan with the network, on the
+  synthetic world and on a KITTI directory with ``--no-gt-labels``.
 """
 import contextlib
 import io
@@ -161,8 +163,6 @@ def test_eval_command_matches_run_eval(runs, capsys):
 
 
 REFUSED = [
-    (["run", "--synthetic", "2", "--segmenter-weights", "w.pkl"],
-     "models/segmenter"),
     (["run", "--synthetic", "2", "--save-checkpoint", "c.npz"],
      "utils/checkpoint"),
     (["run", "--synthetic", "2", "--resume", "c.npz"], "utils/checkpoint"),
@@ -185,6 +185,48 @@ def test_unported_flags_are_refused(argv, module, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert module in err and "not ported" in err
+
+
+@pytest.mark.parametrize("source", ["synthetic", "dataset"])
+def test_segmenter_weights_label_every_scan(source, tmp_path, monkeypatch,
+                                            capsys):
+    """``run --segmenter-weights`` with the versioned mid network at the
+    small XML: every scan goes through ``Segmenter.__call__`` (the synthetic
+    world's labels, or the files' with ``--no-gt-labels``, are not used),
+    and the run tracks (aligned ATE under 0.05 m over a few metres)."""
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.io.kitti_export import \
+        export_synthetic_sequence
+    from semantic_suma_tpu_torch.io.simulation import default_world
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    calls = []
+    call = Segmenter.__call__
+
+    def counted(self, points, remissions=None):
+        labels, probs = call(self, points, remissions)
+        calls.append(int((labels > 0).sum()))
+        return labels, probs
+
+    monkeypatch.setattr(Segmenter, "__call__", counted)
+    cfg = tmp_path / "small.xml"
+    cfg.write_text(XML)
+    weights = "weights/segmenter_synth_mid.pkl"
+    if source == "synthetic":
+        n, argv = 4, ["--synthetic", "4"]
+    else:
+        n, seq = 3, str(tmp_path / "seq")
+        export_synthetic_sequence(
+            seq, n, DataConfig(width=120, height=24),
+            world=default_world(0, movable_fraction=0.3), step=1.0,
+            device="cpu")
+        argv = ["--dataset", seq, "--no-gt-labels"]
+    assert tcli.main(["--cpu", "run", "--config", str(cfg), *argv,
+                      "--segmenter-weights", weights, "--eval"]) == 0
+    out = capsys.readouterr().out
+    assert f"processed {n} scans in " in out
+    assert len(calls) == n and min(calls) > 100, calls
+    ate = _eval_json(out)["ate_rmse_m"]
+    assert np.isfinite(ate) and ate < 0.05, ate
 
 
 def test_run_without_cpu_needs_a_gpu(tmp_path):

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``semantic_suma_tpu_torch`` and every one
-of its modules loads neither JAX nor the JAX package, no source of the port
-(nor ``chip_smoke.py``) imports them, and a whole CLI run (spill, KITTI
-files, evaluation, the stats log and the PLY exports) loads neither."""
+of its modules loads neither JAX (nor flax or optax) nor the JAX package, no
+source of the port (nor ``chip_smoke.py``) imports them, and a whole CLI run
+(spill, KITTI files, evaluation, the stats log and the PLY exports) and a
+segmenter loaded from a versioned weight file load none of them."""
 import ast
 import json
 import os
@@ -11,7 +12,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "semantic_suma_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "semantic_suma_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "semantic_suma_tpu")
 
 
 def _modules():
@@ -111,5 +112,44 @@ def test_cli_run_loads_no_jax(tmp_path):
               "semantic_suma_tpu_torch.io.kitti",
               "semantic_suma_tpu_torch.utils.eventlog",
               "semantic_suma_tpu_torch.utils.scan_accumulator"):
+        assert m in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+# the modules of the segmenter slice
+SEGMENTER_MODULES = (
+    "semantic_suma_tpu_torch.models.labels",
+    "semantic_suma_tpu_torch.models.rangenet",
+    "semantic_suma_tpu_torch.models.segmenter",
+    "semantic_suma_tpu_torch.ops.knn",
+    "semantic_suma_tpu_torch.convert",
+)
+
+
+def test_segmenter_loads_no_jax():
+    """A versioned weight file (pickled numpy, written by the JAX package)
+    loaded and run on a synthetic scan in a fresh interpreter: every module
+    loaded is free of JAX, flax and optax."""
+    assert set(SEGMENTER_MODULES) <= set(_modules())
+    assert (PKG / "csrc" / "knn.cu").is_file()
+    code = (
+        "import json, sys, torch\n"
+        "from semantic_suma_tpu_torch.config import DataConfig\n"
+        "from semantic_suma_tpu_torch.io.simulation import render_scan, "
+        "default_world\n"
+        "from semantic_suma_tpu_torch.models.segmenter import Segmenter\n"
+        "cfg = DataConfig(width=96, height=16)\n"
+        "seg = Segmenter.load('weights/segmenter_synth_mid.pkl', cfg, "
+        "device='cpu')\n"
+        "s = render_scan(default_world(0), torch.eye(4), cfg)\n"
+        "labels, probs = seg(s.points)\n"
+        "assert labels.shape == probs.shape == s.points.shape[:1]\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for m in SEGMENTER_MODULES:
         assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
