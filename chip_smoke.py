@@ -94,12 +94,33 @@ and the exit code is non-zero:
      two projections a scan, no dropped creation;
  17. the KITTI file path with the network's labels: 20 exported scans,
      ``cli run --dataset ... --segmenter-weights ... --no-gt-labels
-     --eval``, ATE under 0.01 m.
+     --eval``, ATE under 0.01 m;
+ 18. ``[train-parity]``: one float32 training step of ``small_rangenet`` at
+     2x64x900 on the card and on the CPU from the same weights and batch
+     (TF32 off): the loss within 1e-5, the batch statistics within 1e-4 and
+     every gradient leaf within 5e-2 of its scale (``leaky_relu``'s kink
+     moves the leaves behind an input that falls on its other side);
+ 19. ``[train]``: the ms of a ``mid_rangenet`` training step (batch 8,
+     CUDA events, no host sync in a step), then ``cli train-segmenter``
+     with the mid recipe of ``weights/segmenter_synth_mid.pkl.json`` (the
+     small recipe if 2000 steps would take over ``TRAIN_BUDGET_S``) into a
+     temporary file: held-out mIoU over 0.8138 (0.5 for the small recipe),
+     peak memory, host reads a step, wall time, and the written blob's
+     labels of one scan against the versioned mid network's;
+ 20. ``[checkpoint]``: the loop path at full width stopped after 70 scans,
+     saved (compacted and as it is), resumed in a fresh ``SurfelSLAM`` and
+     continued for 20 scans against the same run without a stop; then an
+     archive that the CPU wrote (the stop, 2 scans on the CPU) resumed on
+     the card: pose differences, loop state, archive size, save and load
+     times;
+ 21. ``[cli-plots]``: ``cli run --synthetic 20 --plot-dir --save-viewer
+     --save-checkpoint`` and ``cli eval --plot-dir``: every file the JAX
+     CLI writes, by name, not empty.
 Phase 10 runs the segmenter and segmenter-full rows as well (each within
 twice the JAX package's round-5 row, no dropped creation). Phases 13 to 15
-run right after phase 3, phases 16 and 17 last. Each of phases 5, 8, 9, 10
-to 12, 16 and 17 counts the kernels' launches from zero just before its run
-and reads them just after. It prints the card's name and power limit, one
+run right after phase 3, phases 16 to 21 last. Each of phases 5, 8, 9, 10
+to 12, 16, 17 and 19 to 21 counts the kernels' launches from zero just
+before its run and reads them just after. It prints the card's name and power limit, one
 ``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
 shape that a path launched and for kernel C (``launches`` is the sum
 over the paths, ``launches_by_path`` the parts; the two shapes that no
@@ -1852,6 +1873,385 @@ def phase_cli_kitti_segmenter(dev):
     return counts
 
 
+# the mid recipe of weights/segmenter_synth_mid.pkl.json, and the held-out
+# mIoU it must reach on the card: 0.03 under the recorded 0.8438 (a TPU v5e
+# run of the JAX package; the port's simulator draws other range noise)
+MID_RECIPE = ["--synthetic", "96", "--mid", "--steps", "2000", "--batch", "8",
+              "--lr", "2e-3"]
+MID_MIOU_MIN = 0.8438 - MIOU_TOL
+# the recipe the phase falls back to when the mid one would not fit in its
+# share of the run, and the CLI's own bar for it
+SMALL_RECIPE = ["--synthetic", "24", "--small", "--steps", "300"]
+TRAIN_BUDGET_S = 300.0
+
+
+def _train_step_ms(dev, model, batch: int, steps: int = 20):
+    """(ms a step in steady state by CUDA events, peak MiB of a step, host
+    syncs in a step): ``make_train_step`` on random 64x900 images."""
+    from semantic_suma_tpu_torch.models.segmenter import (create_train_state,
+                                                          make_train_step)
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.normal(size=(batch, 64, 900, 5)).astype(
+        np.float32), device=dev)
+    labels = torch.as_tensor(rng.integers(0, 20, (batch, 64, 900)).astype(
+        np.int32), device=dev)
+    valid = torch.as_tensor(rng.random((batch, 64, 900)) < 0.8, device=dev)
+    cw = torch.ones(20, device=dev)
+    schedule, state = create_train_state(model, 0, learning_rate=2e-3,
+                                         total_steps=2000, device=dev)
+    step = make_train_step(schedule, class_weights=cw)
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], images, labels, valid)
+
+    ms = _events_ms(one, steps, 5)
+    syncs = _sync_warnings(one)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one()
+    torch.cuda.synchronize()
+    return ms, torch.cuda.max_memory_allocated() / 2**20, syncs
+
+
+def phase_train(dev):
+    """Segmenter training on the card through the CLI: the ms of a mid step
+    (batch 8, 64x900, CUDA events) first; then ``train-segmenter`` with the
+    mid recipe, or the small one if the mid one would not fit in
+    ``TRAIN_BUDGET_S``, writing to a temporary path; its held-out mIoU, peak
+    memory, host reads a step and wall time; and the written blob against
+    the versioned mid network on one scan. Launch counters are zeroed just
+    before the CLI run and read just after."""
+    import contextlib
+    import io
+    import tempfile
+
+    from semantic_suma_tpu_torch import cli
+    from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.models.rangenet import mid_rangenet
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    from semantic_suma_tpu_torch.tools.make_results import (SEGMENTER_WEIGHTS,
+                                                            last_json)
+
+    ms, peak_step, syncs = _train_step_ms(dev, mid_rangenet(), 8)
+    est = 2000 * ms / 1e3
+    print(f"[train] mid_rangenet step, batch 8 at 64x900 (928 padded), "
+          f"bf16 forward on float32 master weights: {ms:.2f} ms a step "
+          f"(CUDA events, 20 steps after 5), peak {peak_step:.0f} MiB; host "
+          f"syncs in a step {len(syncs)}; 2000 steps ~{est:.0f} s")
+    if syncs:
+        raise AssertionError(f"train: a step waits for the device: "
+                             f"{syncs[:3]}")
+    full = est <= TRAIN_BUDGET_S
+    recipe, bar = (MID_RECIPE, MID_MIOU_MIN) if full else (SMALL_RECIPE, 0.5)
+    steps = int(recipe[recipe.index("--steps") + 1])
+    with tempfile.TemporaryDirectory() as td:
+        out_path = f"{td}/segmenter.pkl"
+        argv = ["train-segmenter", *recipe, "--out", out_path]
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reads = to_host.count
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_launch_counts()
+        reads = to_host.count - reads
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        line = last_json(out.getvalue())
+        logs = [x for x in err.getvalue().splitlines()
+                if x.startswith(("step 0:", f"step {steps - 1}:", "val mIoU"))]
+        miou = line["val_miou"]
+        print(f"[train] cli {' '.join(argv[:-2])}: held-out mIoU {miou:.4f} "
+              f"(limit > {bar:.4f}; recorded 0.8438, TPU v5e), exit code "
+              f"{rc}; wall {wall:.1f} s (data, {steps} steps, evaluation); "
+              f"peak {peak:.0f} MiB; host reads {reads} ({reads / steps:.4f} "
+              f"a step); kernel B launches "
+              f"{sorted(counts['zbuffer_cells_by_shape'].items())}; "
+              + " | ".join(logs))
+        cfg, scan = _segmenter_scan(dev)
+        trained = Segmenter.load(out_path, cfg, device=dev)(scan.points)[0]
+        ref = Segmenter.load(str(SEGMENTER_WEIGHTS["segmenter"]), cfg,
+                             device=dev)(scan.points)[0]
+        valid = scan.valid
+        agree = float((trained == ref)[valid].float().mean())
+        print(f"[train] the written blob, loaded by Segmenter.load, against "
+              f"the versioned {SEGMENTER_WEIGHTS['segmenter'].name} on one "
+              f"scan: labels agree on {agree:.4f} of {int(valid.sum())} valid "
+              f"points")
+    if rc != 0 or not miou > bar:
+        raise AssertionError(f"train: mIoU {miou} (bar {bar}), exit {rc}")
+    if not full:
+        print("[train] the mid recipe did not fit: it is run once through "
+              "the CLI on the card apart from this script")
+    return counts
+
+
+def phase_train_parity(dev):
+    """One float32 training step of ``small_rangenet`` on the card against
+    the same step on the CPU (TF32 off): the same converted weights, the
+    same 2x64x900 batch; the largest relative difference of the loss, the
+    gradients (each leaf against its largest magnitude) and the updated
+    batch statistics. The gradient of ``leaky_relu`` jumps 10x at its
+    kink, so an input within rounding of it on one side moves the leaves
+    behind it (tests/test_torch_train.py)."""
+    from semantic_suma_tpu_torch.convert import flax_variables_from_rangenet
+    from semantic_suma_tpu_torch.models.rangenet import small_rangenet
+    from semantic_suma_tpu_torch.models.segmenter import (create_train_state,
+                                                          make_train_step)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    rng = np.random.default_rng(7)
+    batch = (rng.normal(size=(2, 64, 900, 5)).astype(np.float32),
+             rng.integers(0, 20, (2, 64, 900)).astype(np.int32),
+             rng.random((2, 64, 900)) < 0.8)
+    cw = rng.uniform(0.5, 2.0, 20).astype(np.float32)
+    init = small_rangenet(dtype=torch.float32).reset_parameters(3)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        model = small_rangenet(dtype=torch.float32)
+        schedule, state = create_train_state(model, 0, learning_rate=2e-3,
+                                             total_steps=100, device=d)
+        state.model.load_state_dict(init.state_dict())
+        step = make_train_step(schedule, torch.as_tensor(cw, device=d))
+        state, m = step(state, *(torch.as_tensor(a, device=d)
+                                 for a in batch))
+        grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+        stats = flax_variables_from_rangenet(
+            state.model.state_dict())["batch_stats"]
+        res[d.type] = (float(m["loss"]), float(m["accuracy"]), grads, stats)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    (lc, ac, gc, sc), (lp, ap, gp, sp) = res["cuda"], res["cpu"]
+    g_rel = {n: rel(gc[n], gp[n]) for n in gp}
+    worst = max(g_rel, key=g_rel.get)
+    s_c = {k: torch.as_tensor(v) for k, v in _flat_leaves(sc).items()}
+    s_p = {k: torch.as_tensor(v) for k, v in _flat_leaves(sp).items()}
+    s_rel = max(rel(s_c[k], s_p[k]) for k in s_p)
+    l_rel = abs(lc - lp) / abs(lp)
+    print(f"[train-parity] small_rangenet float32, one step at 2x64x900, "
+          f"card vs CPU: loss {lc:.6f} / {lp:.6f} (relative {l_rel:.2e}), "
+          f"accuracy {ac:.5f} / {ap:.5f}; gradients: largest relative "
+          f"difference {g_rel[worst]:.2e} ({worst}), median "
+          f"{float(np.median(list(g_rel.values()))):.2e} over {len(g_rel)} "
+          f"leaves; batch statistics: largest relative difference "
+          f"{s_rel:.2e}")
+    if not (l_rel <= 1e-5 and s_rel <= 1e-4 and g_rel[worst] <= 5e-2):
+        raise AssertionError("train parity: the card's step is not the CPU's")
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+CKPT_STOP, CKPT_MORE = 70, 20
+
+
+def _loop_fields(lc) -> dict:
+    """The loop closer's archived fields as plain values."""
+    def arr(a):
+        return None if a is None else np.asarray(a, np.float64).tolist()
+    return {"poses": [arr(p) for p in lc.posegraph._poses],
+            "edges": [(int(e[0]), int(e[1]), arr(e[2]), arr(e[3]),
+                       *e[4:]) for e in lc.posegraph._edges],
+            "unverified": [(c.frm, c.to, arr(c.rel_pose))
+                           for c in lc.unverified],
+            "verified": [(c.frm, c.to, arr(c.rel_pose)) for c in lc.verified],
+            "flags": (lc.already_verified, lc.time_without_loop,
+                      lc.loop_count, lc.num_loop_closures),
+            "anchors": (arr(lc.pose_old), arr(lc.last_pose_old))}
+
+
+def _graph_pose_diff(a, b) -> float:
+    n = min(len(a.posegraph._poses), len(b.posegraph._poses))
+    return max((float(np.abs(np.asarray(a.posegraph._poses[i], np.float64)
+                             - np.asarray(b.posegraph._poses[i])).max())
+                for i in range(n)), default=0.0)
+
+
+def phase_checkpoint(dev):
+    """Session checkpoints of the loop path at full width
+    (``loop_config()``, 64x900, the 2^21-row arena): a run stopped after 70
+    scans of the 18 m circle (past the lap, so the closer holds candidates
+    and closures), saved, resumed in a fresh ``SurfelSLAM`` and continued
+    for 20 scans, against the same 90 scans without a stop (both flush at
+    scan 70); the largest pose difference, the loop state's equality, the
+    archive's size, the save and load times. Then the same from an archive
+    that the CPU wrote: the stopped archive loaded on the CPU, 2 more scans
+    there, saved, and resumed on the card. Launch counters are zeroed just
+    before the runs and read just after."""
+    import os
+    import tempfile
+
+    from semantic_suma_tpu_torch.config import loop_config
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    from semantic_suma_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                          save_checkpoint)
+
+    cfg = loop_config()
+    n = CKPT_STOP + CKPT_MORE
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n, radius=18.0, step=1.8, device=dev)
+    scans = [render_scan(world, gt[i], cfg.data) for i in range(n)]
+
+    def drive(slam, lo, hi):
+        for s in scans[lo:hi]:
+            slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
+        slam.flush()
+
+    _zero_launch_counts()
+    whole = SurfelSLAM(cfg, device=dev)
+    whole._loop.warmup(whole)
+    drive(whole, 0, CKPT_STOP)
+    drive(whole, CKPT_STOP, n)
+    stopped = SurfelSLAM(cfg, device=dev)
+    stopped._loop.warmup(stopped)
+    drive(stopped, 0, CKPT_STOP)
+    fields = _loop_fields(stopped._loop)
+    # the floor: the same 70 scans run twice on the card already differ
+    # (float atomics sum in another order from run to run)
+    floor = float(np.abs(stopped.trajectory()
+                         - whole.trajectory()[:CKPT_STOP]).max())
+    print(f"[checkpoint] two runs of the same {CKPT_STOP} scans on the card "
+          f"differ by {floor:.3e} m at most (closures "
+          f"{stopped._loop.num_loop_closures}; the run without a stop "
+          f"reaches {whole._loop.num_loop_closures} after {n} scans)")
+    bad = []
+    with tempfile.TemporaryDirectory() as td:
+        for label, compact in (("compacted", True), ("as it is", False)):
+            path = f"{td}/s_{compact}.npz"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(stopped, path, compact_map=compact)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = load_checkpoint(path, cfg, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            same_at_stop = _loop_fields(resumed._loop) == fields
+            drive(resumed, CKPT_STOP, n)
+            diff = float(np.abs(resumed.trajectory()
+                                - whole.trajectory()).max())
+            equal = _loop_fields(resumed._loop) == _loop_fields(whole._loop)
+            print(f"[checkpoint] card, map {label}: stopped at scan "
+                  f"{CKPT_STOP} ({len(fields['verified'])} verified and "
+                  f"{len(fields['unverified'])} unverified candidates, "
+                  f"{fields['flags'][3]} closures, "
+                  f"{len(fields['edges'])} graph edges), archive "
+                  f"{os.path.getsize(path) / 2**20:.1f} MiB, save "
+                  f"{t_save:.2f} s, load {t_load:.2f} s; loop state equal "
+                  f"at the stop {same_at_stop}; after {CKPT_MORE} more scans: "
+                  f"largest pose difference against the run without a stop "
+                  f"{diff:.3e} m, loop state equal {equal} (graph poses "
+                  f"within {_graph_pose_diff(resumed._loop, whole._loop):.3e}"
+                  f"), closures {resumed._loop.num_loop_closures} / "
+                  f"{whole._loop.num_loop_closures}")
+            if not same_at_stop or not np.isfinite(diff):
+                bad.append(f"{label}: loop state at the stop {same_at_stop}, "
+                           f"pose difference {diff}")
+            del resumed
+        # an archive written on the CPU: the stopped session on the CPU, two
+        # more scans there, then the card resumes it
+        cpu = load_checkpoint(f"{td}/s_False.npz", cfg, device="cpu")
+        t0 = time.perf_counter()
+        for s in scans[CKPT_STOP:CKPT_STOP + 2]:
+            cpu.process_scan(s.points.cpu(), s.labels.cpu(), s.probs.cpu(),
+                             s.valid.cpu())
+        t_cpu = time.perf_counter() - t0
+        cpu_path = f"{td}/cpu.npz"
+        save_checkpoint(cpu, cpu_path, compact_map=False)
+        resumed = load_checkpoint(cpu_path, cfg, device=dev)
+        same = _loop_fields(resumed._loop) == _loop_fields(cpu._loop)
+        drive(resumed, CKPT_STOP + 2, n)
+        diff = float(np.abs(resumed.trajectory() - whole.trajectory()).max())
+        print(f"[checkpoint] an archive the CPU wrote (2 scans on the CPU in "
+              f"{t_cpu:.1f} s after loading the stop): loop state equal on "
+              f"load {same}; after {CKPT_MORE - 2} more scans on the card: "
+              f"largest pose difference against the run without a stop "
+              f"{diff:.3e} m, closures {resumed._loop.num_loop_closures} / "
+              f"{whole._loop.num_loop_closures}")
+        if not same or not np.isfinite(diff):
+            bad.append(f"CPU archive: loop state {same}, difference {diff}")
+    torch.cuda.synchronize()
+    counts = _read_launch_counts()
+    if bad:
+        raise AssertionError("checkpoint: " + "; ".join(bad))
+    return counts
+
+
+# the files the JAX CLI writes (semantic_suma_tpu/cli.py:309-341, 353-361)
+JAX_RUN_PLOTS = ["errors.png", "model_depth.png", "model_normals.png",
+                 "model_semantics.png", "stats.png", "traj.png"]
+JAX_EVAL_PLOTS = ["errors.png", "traj.png"]
+
+
+def phase_cli_plots(dev):
+    """``cli run --synthetic 20 --plot-dir D --save-viewer V.html
+    --save-checkpoint C.npz --eval --eval-breakdown --export-poses E`` and
+    ``cli eval --plot-dir`` of the exported poses on the card: every file
+    the JAX CLI writes exists under its name and is not empty. Launch
+    counters are zeroed just before the run and read just after."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from semantic_suma_tpu_torch import cli
+    from semantic_suma_tpu_torch.io.kitti import save_poses
+    from semantic_suma_tpu_torch.io.simulation import circular_trajectory
+
+    with tempfile.TemporaryDirectory() as td:
+        run_argv = ["run", "--synthetic", "20", "--plot-dir", f"{td}/run",
+                    "--save-viewer", f"{td}/map.html", "--save-checkpoint",
+                    f"{td}/session.npz", "--eval", "--eval-breakdown",
+                    "--export-poses", f"{td}/est.txt"]
+        gt = f"{td}/gt.txt"
+        save_poses(gt, circular_trajectory(20, 18.0, step=1.0).numpy())
+        eval_argv = ["eval", "--gt", gt, "--est", f"{td}/est.txt",
+                     "--eval-breakdown", "--plot-dir", f"{td}/eval"]
+        out, err = io.StringIO(), io.StringIO()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc_run = cli.main(run_argv)
+            torch.cuda.synchronize()
+            counts = _read_launch_counts()
+            rc_eval = cli.main(eval_argv)
+        wall = time.perf_counter() - t0
+        got = {"run": sorted(os.listdir(f"{td}/run")),
+               "eval": sorted(os.listdir(f"{td}/eval"))}
+        sizes = {f"{k}/{f}": os.path.getsize(f"{td}/{k}/{f}")
+                 for k, names in got.items() for f in names}
+        for f in ("map.html", "session.npz"):
+            sizes[f] = os.path.getsize(f"{td}/{f}") \
+                if os.path.exists(f"{td}/{f}") else 0
+    print(f"[cli-plots] cli {' '.join(run_argv[:2])} ... and cli eval "
+          f"--plot-dir on the card in {wall:.1f} s (exit codes {rc_run}, "
+          f"{rc_eval}): run wrote {got['run']}, eval wrote {got['eval']}; "
+          f"bytes {sizes}; kernel B launches "
+          f"{sorted(counts['zbuffer_cells_by_shape'].items())}")
+    bad = [k for k, v in sizes.items() if v <= 0]
+    if rc_run or rc_eval or got["run"] != JAX_RUN_PLOTS \
+            or got["eval"] != JAX_EVAL_PLOTS or bad:
+        raise AssertionError(f"cli plots: {got}, empty or missing {bad}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-scans", type=int, default=0,
@@ -1896,6 +2296,10 @@ def main() -> int:
                                     dev)
     paths["cli_kitti_segmenter"] = timed(
         "cli-kitti-segmenter", phase_cli_kitti_segmenter, dev)
+    timed("train-parity", phase_train_parity, dev)
+    paths["train"] = timed("train", phase_train, dev)
+    paths["checkpoint"] = timed("checkpoint", phase_checkpoint, dev)
+    paths["cli_plots"] = timed("cli-plots", phase_cli_plots, dev)
     # launches: every path counted from zero over its own run and read right
     # after it; "launches" is their sum, "launches_by_path" the parts
     rec_a["launches_by_path"] = {k: v["bilateral_filter"]

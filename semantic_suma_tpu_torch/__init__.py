@@ -10,8 +10,8 @@ reference the tests hold it against.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version. The headless entry
-point is ``python -m semantic_suma_tpu_torch.cli`` (``run`` and ``eval``; the
-top-level ``--cpu`` sends a run to the CPU).
+point is ``python -m semantic_suma_tpu_torch.cli`` (``run``, ``eval`` and
+``train-segmenter``; the top-level ``--cpu`` sends a command to the CPU).
 """
 
 __version__ = "0.1.0"

@@ -7,22 +7,31 @@
   python -m semantic_suma_tpu_torch.cli eval --gt poses/00.txt --est est.txt
   python -m semantic_suma_tpu_torch.cli --cpu run --config small.xml \\
       --synthetic 20 --eval
+  python -m semantic_suma_tpu_torch.cli run --synthetic 100 \\
+      --save-checkpoint s.npz --plot-dir plots --save-viewer map.html
+  python -m semantic_suma_tpu_torch.cli run --synthetic 150 --resume s.npz
+  python -m semantic_suma_tpu_torch.cli train-segmenter --synthetic 96 --mid \\
+      --steps 2000 --batch 8 --lr 2e-3 --out w.pkl
 
-``run`` goes to the GPU unless the top-level ``--cpu`` is given; without a
-GPU it fails rather than falling back to the CPU. The printed lines keep the
-JAX package's format (``processed N scans in ...``, then the evaluation
-JSON), so one parser reads both. ``--segmenter-weights`` labels every scan
+Every command goes to the GPU unless the top-level ``--cpu`` is given;
+without a GPU it fails rather than falling back to the CPU. The printed
+lines keep the JAX package's format (``processed N scans in ...``, then the
+evaluation JSON; ``train-segmenter``'s ``{"val_miou": ..., "weights":
+...}``), so one parser reads both. ``--segmenter-weights`` labels every scan
 with the network (``models/segmenter``) instead of the simulator's or the
-files' labels. Flags whose modules are not ported yet
-(``--save-checkpoint``, ``--resume``, ``--sharded``, ``--save-viewer``,
-``--plot-dir``) and the ``train-segmenter`` command end the run with an
-error that names the missing module.
+files' labels. ``--save-checkpoint`` / ``--resume`` write and read the JAX
+package's session archive (``utils/checkpoint``), ``--plot-dir`` its PNGs
+(``utils/viz``) and ``--save-viewer`` its WebGL page (``utils/viz3d``). The
+top-level ``--cache-dir`` names the directory the CUDA kernels are built
+into. ``--sharded`` needs ``parallel/``, which is not ported: it ends the
+run with an error that names the missing module.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from collections import deque
@@ -33,11 +42,7 @@ import torch
 
 # flag -> the module of the JAX package it needs that the port lacks
 NOT_PORTED = {
-    "save_checkpoint": ("--save-checkpoint", "utils/checkpoint"),
-    "resume": ("--resume", "utils/checkpoint"),
     "sharded": ("--sharded", "parallel/sharding"),
-    "save_viewer": ("--save-viewer", "utils/viz3d"),
-    "plot_dir": ("--plot-dir", "utils/viz"),
 }
 
 
@@ -184,7 +189,14 @@ def cmd_run(args) -> int:
         built = cuda_build.build_all()
         print(f"kernels built in {time.perf_counter() - t_b:.1f}s "
               f"({sorted(built) or 'none stale'})", file=sys.stderr)
-    slam = SurfelSLAM(cfg, device=device)
+    if args.resume:
+        from .utils.checkpoint import load_checkpoint
+        slam = load_checkpoint(args.resume, cfg, device=device)
+        start = len(slam.poses)
+        print(f"resumed at scan {start} from {args.resume}", file=sys.stderr)
+    else:
+        slam = SurfelSLAM(cfg, device=device)
+        start = 0
 
     evlog = None
     if args.stats_json:
@@ -225,7 +237,6 @@ def cmd_run(args) -> int:
         slam._loop.warmup(slam)
         print(f"loop programs warmed in {time.perf_counter() - t_w:.1f}s",
               file=sys.stderr)
-    start = 0
     t0 = time.perf_counter()
     t_steady = None  # the clock restarted after the first scans
     steady_at = start + 10
@@ -263,6 +274,11 @@ def cmd_run(args) -> int:
         evlog.log("stage-times", **{k: v["mean_ms"] for k, v in
                                     sw.summary().items()})
 
+    if args.save_checkpoint:
+        from .utils.checkpoint import save_checkpoint
+        save_checkpoint(slam, args.save_checkpoint)
+        print(f"checkpoint -> {args.save_checkpoint}", file=sys.stderr)
+
     if args.export_poses:
         from .io.kitti import save_poses
         save_poses(args.export_poses, est, getattr(reader, "tr", None))
@@ -274,12 +290,33 @@ def cmd_run(args) -> int:
     if args.save_map:
         save_map_ply(args.save_map, slam.state, cfg.map)
 
+    if args.save_viewer:
+        from .utils.viz3d import export_map_html
+        export_map_html(args.save_viewer, slam.state, cfg.map, trajectory=est)
+
     if accum is not None:
         save_cloud_ply(args.save_cloud, accum.world_cloud(max_points=2_000_000))
+
+    if args.plot_dir:
+        from .utils import viz
+        os.makedirs(args.plot_dir, exist_ok=True)
+        loops = [i for i, s_ in enumerate(slam.statistics)
+                 if s_.get("loop-verifying")]
+        viz.plot_trajectory(est, np.asarray(gt) if gt is not None else None,
+                            loops, os.path.join(args.plot_dir, "traj.png"))
+        viz.plot_statistics(slam.statistics,
+                            path=os.path.join(args.plot_dir, "stats.png"))
+        viz.save_map_images(slam.state.model_maps,
+                            prefix=os.path.join(args.plot_dir, "model"))
 
     if args.eval and gt is not None:
         res = metrics.evaluate(np.asarray(gt), est,
                                breakdown=args.eval_breakdown)
+        if args.eval_breakdown and args.plot_dir:
+            from .utils import viz
+            viz.plot_error_breakdown(
+                res["by_length"], res["by_speed"],
+                path=os.path.join(args.plot_dir, "errors.png"))
         print(json.dumps(res, indent=2))
     return 0
 
@@ -291,7 +328,56 @@ def cmd_eval(args) -> int:
     gt = load_poses(args.gt, tr)
     est = load_poses(args.est, tr)
     res = metrics.evaluate(gt, est, breakdown=args.eval_breakdown)
+    if args.plot_dir:
+        from .utils import viz
+        os.makedirs(args.plot_dir, exist_ok=True)
+        viz.plot_trajectory(est, gt,
+                            path=os.path.join(args.plot_dir, "traj.png"))
+        if args.eval_breakdown:
+            viz.plot_error_breakdown(
+                res["by_length"], res["by_speed"],
+                path=os.path.join(args.plot_dir, "errors.png"))
     print(json.dumps(res, indent=2))
+    return 0
+
+
+def _train_model(args):
+    from .models import rangenet as rn
+    return (rn.small_rangenet() if args.small
+            else rn.mid_rangenet() if args.mid else rn.RangeNet())
+
+
+def cmd_train_segmenter(args) -> int:
+    from .config import DataConfig
+    from .device import resolve_device
+    device = resolve_device("cpu" if args.cpu else None)
+
+    def log(*a):
+        print(*a, file=sys.stderr)
+
+    cfg = DataConfig()
+    if args.synthetic:
+        from .models.segmenter import train_synthetic
+        seg, miou = train_synthetic(
+            cfg, n_train=args.synthetic, n_val=max(4, args.synthetic // 8),
+            steps=args.steps, batch=args.batch, lr=args.lr, seed=args.seed,
+            model=_train_model(args), log=log, device=device)
+        seg.save(args.out)
+        print(json.dumps({"val_miou": miou, "weights": args.out}))
+        return 0 if miou > 0.5 else 1
+
+    from .io.kitti import KITTIReader
+    from .models.segmenter import train_kitti
+    reader = KITTIReader(args.dataset, use_gt_labels=True)
+    if reader.label_files is None:
+        print("ERROR: no SemanticKITTI labels found", file=sys.stderr)
+        return 1
+    seg, miou = train_kitti(
+        reader, cfg, epochs=args.epochs, batch=args.batch, lr=args.lr,
+        seed=args.seed, model=_train_model(args),
+        val_fraction=args.val_fraction, log=log, device=device)
+    seg.save(args.out)
+    print(json.dumps({"val_miou": miou, "weights": args.out}))
     return 0
 
 
@@ -300,6 +386,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch versions of the "
                          "kernels); the default is the GPU")
+    ap.add_argument("--cache-dir", default=None,
+                    help="build the CUDA kernels into this directory "
+                         "(default: the package's build/)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     runp = sub.add_parser("run", help="run SLAM over a sequence")
@@ -321,12 +410,18 @@ def main(argv=None) -> int:
     runp.add_argument("--stats-json",
                       help="per-scan statistics as a JSONL event log")
     runp.add_argument("--save-map")
-    runp.add_argument("--save-viewer", help="not ported")
+    runp.add_argument("--save-viewer",
+                      help="standalone interactive 3D map viewer HTML "
+                           "(WebGL; surfels + trajectory + car glyph)")
     runp.add_argument("--save-cloud",
                       help="aggregated world-frame raw-scan cloud PLY")
-    runp.add_argument("--save-checkpoint", help="not ported")
-    runp.add_argument("--resume", help="not ported")
-    runp.add_argument("--plot-dir", help="not ported")
+    runp.add_argument("--save-checkpoint",
+                      help="write a resumable session checkpoint at the end")
+    runp.add_argument("--resume",
+                      help="resume from a checkpoint written by "
+                           "--save-checkpoint (same config/capacities)")
+    runp.add_argument("--plot-dir",
+                      help="write trajectory/statistics/map-image PNGs here")
     runp.add_argument("--eval", action="store_true")
     runp.add_argument("--eval-breakdown", action="store_true",
                       help="add the devkit per-segment-length and "
@@ -338,26 +433,44 @@ def main(argv=None) -> int:
     evalp.add_argument("--gt", required=True)
     evalp.add_argument("--est", required=True)
     evalp.add_argument("--calib")
-    evalp.add_argument("--plot-dir", help="not ported")
+    evalp.add_argument("--plot-dir",
+                       help="write devkit path/error plots here")
     evalp.add_argument("--eval-breakdown", action="store_true",
                        help="add per-segment-length / per-speed tables")
     evalp.set_defaults(fn=cmd_eval)
 
-    sub.add_parser("train-segmenter", help="not ported")
+    trainp = sub.add_parser("train-segmenter",
+                            help="train the range-image segmenter")
+    trainp.add_argument("--dataset",
+                        help="KITTI sequence dir (omit with --synthetic)")
+    trainp.add_argument("--synthetic", type=int, default=None,
+                        help="train on N synthetic raycast scans instead")
+    trainp.add_argument("--out", required=True)
+    trainp.add_argument("--epochs", type=int, default=1)
+    trainp.add_argument("--steps", type=int, default=300,
+                        help="training steps (synthetic mode)")
+    trainp.add_argument("--batch", type=int, default=4)
+    trainp.add_argument("--lr", type=float, default=1e-3)
+    trainp.add_argument("--seed", type=int, default=0)
+    trainp.add_argument("--val-fraction", type=float, default=0.1,
+                        help="held-out fraction for mIoU (dataset mode)")
+    trainp.add_argument("--small", action="store_true")
+    trainp.add_argument("--mid", action="store_true",
+                        help="darknet21-depth deployment net (see "
+                             "models.rangenet.mid_rangenet)")
+    trainp.set_defaults(fn=cmd_train_segmenter)
 
-    args, rest = ap.parse_known_args(argv)
-    if args.cmd == "train-segmenter":
-        ap.error("train-segmenter needs the training half of "
-                 "models/segmenter (create_train_state, loss_fn, "
-                 "make_train_step, train_synthetic, train_kitti), which is "
-                 "not ported yet")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
     for dest, (flag, module) in NOT_PORTED.items():
         if getattr(args, dest, None) is not None:
             ap.error(f"{flag} needs {module}, which is not ported yet")
+    if args.cache_dir:
+        from .ops import cuda_build
+        cuda_build.set_build_dir(args.cache_dir)
     if args.cmd == "run" and not (args.dataset or args.synthetic):
         ap.error("run requires --dataset or --synthetic")
+    if args.cmd == "train-segmenter" and not (args.dataset or args.synthetic):
+        ap.error("train-segmenter requires --dataset or --synthetic")
     return args.fn(args)
 
 

@@ -1,11 +1,13 @@
 """Carry state across from the JAX package: the simulated world, the SLAM
 state, the pose graph and the loop closer's host state, so both packages can
-start from the same mid-run point; and the segmenter's weights both ways.
+start from the same mid-run point; the segmenter's weights both ways; and
+the state of its optimizer (optax's AdamW) into the port's.
 
 Nothing here imports JAX: the inputs are duck-typed (a JAX ``World``'s boxes,
 or a JAX ``SlamState`` / ``MapState`` whose leaves were turned into numpy
 arrays, e.g. with ``jax.tree.map(np.asarray, state)``; flax variables as
-nested dicts of numpy arrays, as the weight files pickle them).
+nested dicts of numpy arrays, as the weight files pickle them; an optax state
+with numpy leaves).
 """
 
 from __future__ import annotations
@@ -173,8 +175,7 @@ def rangenet_state_from_flax(variables) -> dict:
                 else:
                     a = a.transpose(3, 2, 0, 1)
                 leaf = "weight"
-            out[".".join(mods + [leaf])] = torch.from_numpy(
-                np.ascontiguousarray(a))
+            out[".".join(mods + [leaf])] = torch.from_numpy(np.array(a))
     return out
 
 
@@ -195,4 +196,24 @@ def flax_variables_from_rangenet(state_dict) -> dict:
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(a)
+    return out
+
+
+def adamw_state_from_optax(opt_state, model) -> dict:
+    """The port's AdamW state from the state of ``optax.adamw`` (its leaves
+    as numpy arrays, e.g. ``jax.tree.map(np.asarray, opt_state)``): the
+    first and second moments ``mu`` and ``nu``, laid out as
+    :func:`rangenet_state_from_flax` lays out the parameters, and the step
+    ``count``. Returns ``{parameter: {"step", "exp_avg", "exp_avg_sq"}}``
+    keyed by the parameters of ``model`` (a port ``RangeNet``), for
+    ``optimizer.state.update``."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    mu = rangenet_state_from_flax({"params": adam.mu})
+    nu = rangenet_state_from_flax({"params": adam.nu})
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    out = {}
+    for name, p in model.named_parameters():
+        out[p] = {"step": step.clone(),
+                  "exp_avg": mu[name].to(p.device, p.dtype),
+                  "exp_avg_sq": nu[name].to(p.device, p.dtype)}
     return out

@@ -9,8 +9,9 @@ W, 5]`` in, ``[B, H, W, classes]`` out); inside, the modules work in NCHW
 (``channels_last`` memory on the GPU). They compute as flax does:
 
 * each convolution and transposed convolution takes bfloat16 inputs and
-  weights and gives a bfloat16 output; batch norm (running statistics, eps
-  1e-5) promotes to float32, then ``leaky_relu(0.1)`` and the residual sums
+  weights and gives a bfloat16 output; batch norm (eps 1e-5; the running
+  statistics in ``eval()`` mode, the batch's in ``train()`` mode, see
+  :class:`BatchNorm`) promotes to float32, then ``leaky_relu(0.1)`` and the residual sums
   run in float32; the head (1x1 with bias) runs in float32;
 * ``padding="SAME"`` pads as flax does: a total of ``max((ceil(W / s) - 1)
   * s + k - W, 0)``, the low half rounded down, so the stride-(1, 2)
@@ -113,8 +114,17 @@ class ConvTranspose(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True, dtype=float32)``:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32."""
+    """flax ``nn.BatchNorm(use_running_average=not train, dtype=float32)``:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32.
+
+    In evaluation mode ``mean`` and ``var`` are the running statistics. In
+    training mode (``self.training``) they are the batch's, over (N, H, W)
+    in float32, with flax's *biased* variance ``max(mean(x²) - mean(x)², 0)``;
+    the running statistics then move to ``0.99 * running + 0.01 * batch``
+    with that same variance (``F.batch_norm`` would update them with the
+    unbiased one)."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, c: int):
         super().__init__()
@@ -124,9 +134,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + BN_EPS) * self.scale
-        y = x.float() - self.mean[:, None, None]
-        return torch.addcmul(self.bias[:, None, None], y, mul[:, None, None])
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        return torch.addcmul(self.bias[:, None, None], x - mean[:, None, None],
+                             mul[:, None, None])
 
 
 class ConvBlock(nn.Module):
@@ -228,7 +248,8 @@ class Decoder(nn.Module):
 
 class RangeNet(nn.Module):
     """Full segmenter: ``[B, H, W, 5]`` -> ``[B, H, W, num_classes]``
-    float32 logits."""
+    float32 logits. It starts in ``eval()`` mode, flax's ``train=False``;
+    ``train()`` switches every batch norm to the batch's statistics."""
 
     def __init__(self, num_classes: int = len(TRAIN_CLASSES),
                  stage_blocks: Sequence[int] = (1, 2, 8, 8, 4),
@@ -243,6 +264,9 @@ class RangeNet(nn.Module):
         self.add_module("Decoder_0", Decoder(widths, dtype))
         self.add_module("Conv_0", Conv(widths[0], num_classes, (1, 1),
                                        bias=True, dtype=torch.float32))
+        # the JAX package's default is ``train=False``: a network starts in
+        # evaluation mode (running statistics) until ``train()``
+        self.eval()
 
     def reset_parameters(self, seed: int = 0) -> "RangeNet":
         """flax's default initialisation (truncated lecun-normal kernels,

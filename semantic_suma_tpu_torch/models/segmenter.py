@@ -1,4 +1,4 @@
-"""Segmenter inference and evaluation (counterpart of the serving half of
+"""Segmenter training, inference and evaluation (counterpart of
 ``semantic_suma_tpu/models/segmenter.py``).
 
 * :class:`Segmenter`: scan points -> per-point ``(raw label, probability)``,
@@ -10,24 +10,140 @@
   datasets of range images with train-class labels, from the synthetic
   world or from a KITTI reader.
 
-Training (``create_train_state``, ``loss_fn``, ``make_train_step``,
-``train_synthetic``, ``train_kitti``) is not ported yet.
+* Training: :class:`TrainState` (the module with its float32 master
+  weights and batch-statistics buffers, its AdamW and the step),
+  :func:`loss_fn` (pixel-weighted cross entropy), :func:`make_train_step`,
+  and the two drivers :func:`train_synthetic` and :func:`train_kitti`. They
+  compute what the JAX package's ``optax.adamw`` with a warmup + cosine
+  schedule computes (``torch.optim.AdamW`` with the same settings, the
+  schedule read at the step *before* it, as optax reads it), draw their
+  batches from the same ``np.random.default_rng(seed)`` calls in the same
+  order, and run the forward in bfloat16 on float32 master weights.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import pickle
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import DataConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_host
 from ..ops.knn import labels_for_points
 from ..ops.projection import project_scan
 from .labels import raw_to_train
 from .rangenet import Conv, ConvTranspose, RangeNet, make_input, small_rangenet
+
+
+class TrainState(NamedTuple):
+    """A network in training: ``model`` holds the float32 master weights and
+    the batch-statistics buffers (updated in place by each step),
+    ``optimizer`` its AdamW, ``step`` the number of steps taken."""
+
+    model: RangeNet
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+def warmup_cosine_decay(learning_rate: float, total_steps: int):
+    """``optax.warmup_cosine_decay_schedule`` as the JAX package builds it:
+    a linear warmup from 0.1 lr to lr over ``max(1, total // 20)`` steps,
+    then a cosine from lr to 0.01 lr over the ``total - warmup`` steps left.
+    Returns a function of the step count (the count before the step, as
+    optax reads it)."""
+    init, peak, end = 0.1 * learning_rate, learning_rate, 0.01 * learning_rate
+    warmup = max(1, total_steps // 20)
+    decay = total_steps - warmup
+    if not decay > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={decay}.")
+    alpha = 0.0 if peak == 0.0 else end / peak
+
+    def schedule(step: int) -> float:
+        if step < warmup:
+            frac = 1.0 - max(step, 0) / warmup
+            return (init - peak) * frac + peak
+        c = min(step - warmup, decay)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay))
+        return peak * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def create_train_state(model: RangeNet, seed: int = 0,
+                       learning_rate=1e-3, weight_decay: float = 1e-4,
+                       total_steps: int | None = None, device=None):
+    """Initialise ``model`` from ``seed`` (flax's initialisation, drawn from
+    a ``torch.Generator``), move it to the device in training mode, and give
+    it ``optax.adamw``'s optimizer: AdamW with b1 0.9, b2 0.999, eps 1e-8
+    outside the square root and a decoupled weight decay scaled by the
+    learning rate, on every parameter (the batch-norm scales and biases
+    too; the running statistics are buffers). ``learning_rate`` may be a
+    float or a function of the step; with ``total_steps`` a float becomes
+    :func:`warmup_cosine_decay`. Returns ``(schedule, TrainState)``."""
+    dev = resolve_device(device)
+    model = model.reset_parameters(seed).to(dev).train()
+    if total_steps is not None and not callable(learning_rate):
+        learning_rate = warmup_cosine_decay(learning_rate, total_steps)
+    lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
+    opt = torch.optim.AdamW(model.parameters(), lr=lr0, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay)
+    return learning_rate, TrainState(model=model, optimizer=opt, step=0)
+
+
+def loss_fn(model: RangeNet, images, labels, valid, class_weights=None,
+            train: bool = True):
+    """Pixel-weighted cross entropy over ``[B, H, W, 5]`` images; ``labels``
+    are train-class ids, ``valid`` masks unlabelled and invalid pixels.
+    Returns ``(loss, accuracy)``, both 0-dim float32 tensors; in training
+    mode the forward also moves the batch-statistics buffers."""
+    model.train(train)
+    logits = model(images)
+    labels = labels.long()
+    logp = F.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    w = valid.float()
+    if class_weights is not None:
+        w = w * class_weights[labels]
+    loss = -(ll * w).sum() / w.sum().clamp_min(1.0)
+    hits = (logits.argmax(dim=-1) == labels) & valid
+    acc = hits.sum().float() / valid.sum().clamp_min(1).float()
+    return loss, acc
+
+
+def make_train_step(schedule, class_weights=None):
+    """Returns ``train_step(state, images, labels, valid) -> (state,
+    metrics)``: one AdamW step at the learning rate ``schedule(state.step)``
+    (or the float ``schedule``). The module and its optimizer are updated in
+    place; ``metrics`` holds the loss and accuracy as device tensors, so a
+    step reads nothing back to the host."""
+
+    def train_step(state: TrainState, images, labels, valid):
+        lr = schedule(state.step) if callable(schedule) else schedule
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, acc = loss_fn(state.model, images, labels, valid,
+                            class_weights, train=True)
+        loss.backward()
+        state.optimizer.step()
+        return (state._replace(step=state.step + 1),
+                {"loss": loss.detach(), "accuracy": acc})
+
+    return train_step
+
+
+def _trained_segmenter(cfg: DataConfig, model: RangeNet, device):
+    """A :class:`Segmenter` of the trained module's weights."""
+    from ..convert import flax_variables_from_rangenet
+    return Segmenter(cfg, model=model,
+                     variables=flax_variables_from_rangenet(model.state_dict()),
+                     device=device)
 
 
 def _inference_copy(model: RangeNet, device: torch.device) -> RangeNet:
@@ -265,3 +381,118 @@ def kitti_dataset(reader, cfg: DataConfig, indices, device=None):
         labs.append(raw_to_train(res.sem_label).cpu().numpy())
         vals.append((res.vertex_valid & (res.sem_label > 0)).cpu().numpy())
     return np.stack(imgs), np.stack(labs), np.stack(vals)
+
+
+# ---------------------------------------------------------------------------
+# training drivers
+# ---------------------------------------------------------------------------
+
+def _log_metrics(m) -> tuple:
+    """(loss, accuracy) read to the host in one transfer."""
+    return tuple(to_host(torch.stack([m["loss"], m["accuracy"]])))
+
+
+def train_synthetic(cfg: DataConfig, *, n_train: int = 48, n_val: int = 8,
+                    steps: int = 300, batch: int = 4, lr: float = 2e-3,
+                    seed: int = 0, model: RangeNet | None = None,
+                    movable_fraction: float = 0.3, log=None, device=None):
+    """Train a segmenter on the synthetic world; returns (Segmenter, held-out
+    mIoU). The training set goes to the device once and each step's batch is
+    a gather there; the batch indices are the JAX package's draws
+    (``rng.integers`` of ``np.random.default_rng(seed)``, one call a step),
+    made before the loop and uploaded once. The loop reads the host only at
+    its logging steps (every 50th and the last)."""
+    log = log or (lambda *a: None)
+    dev = resolve_device(device)
+    model = model if model is not None else small_rangenet()
+    imgs, labs, vals = synthetic_dataset(cfg, n_train + n_val, seed=seed,
+                                         movable_fraction=movable_fraction,
+                                         device=dev)
+    tr_i, tr_l, tr_v = imgs[:n_train], labs[:n_train], vals[:n_train]
+    va_i, va_l, va_v = imgs[n_train:], labs[n_train:], vals[n_train:]
+
+    cw = torch.as_tensor(class_weights_from_freq(tr_l, tr_v,
+                                                 model.num_classes),
+                         device=dev)
+    schedule, state = create_train_state(model, seed, learning_rate=lr,
+                                         total_steps=steps, device=dev)
+    step_fn = make_train_step(schedule, class_weights=cw)
+
+    tr_i_d, tr_l_d, tr_v_d = (torch.as_tensor(a, device=dev)
+                              for a in (tr_i, tr_l, tr_v))
+    rng = np.random.default_rng(seed)
+    sel_all = torch.as_tensor(
+        np.stack([rng.integers(0, n_train, size=batch)
+                  for _ in range(steps)]), device=dev)
+    for it in range(steps):
+        sel = sel_all[it]
+        state, m = step_fn(state, tr_i_d[sel], tr_l_d[sel], tr_v_d[sel])
+        if it % 50 == 0 or it == steps - 1:
+            loss, acc = _log_metrics(m)
+            log(f"step {it}: loss={loss:.3f} acc={acc:.3f}")
+
+    seg = _trained_segmenter(cfg, state.model, dev)
+    m, per_class = evaluate_miou(seg, va_i, va_l, va_v)
+    log(f"val mIoU = {m:.3f}  per-class={per_class}")
+    return seg, m
+
+
+def train_kitti(reader, cfg: DataConfig, *, epochs: int = 1, batch: int = 4,
+                lr: float = 1e-3, seed: int = 0,
+                model: RangeNet | None = None, val_fraction: float = 0.1,
+                log=None, device=None):
+    """Train a segmenter on SemanticKITTI ``.label`` supervision with the
+    quality contract of :func:`train_synthetic`: a held-out split,
+    inverse-log-frequency class weights from a sample of the training scans,
+    the warmup + cosine schedule, and a final held-out mIoU. The split and
+    each epoch's order are the JAX package's permutations of
+    ``np.random.default_rng(seed)``. Returns (Segmenter, mIoU)."""
+    log = log or (lambda *a: None)
+    dev = resolve_device(device)
+    model = model if model is not None else small_rangenet()
+    n = reader.count()
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n)
+    n_val = max(1, int(round(n * val_fraction)))
+    val_idx, train_idx = order[:n_val], order[n_val:]
+    if len(train_idx) < batch:
+        raise ValueError(f"need >= {batch + 1} scans, got {n}")
+
+    # class weights from a sample of the training labels
+    sample = train_idx[:min(len(train_idx), 32)]
+    s_i, s_l, s_v = kitti_dataset(reader, cfg, sample, device=dev)
+    cw = torch.as_tensor(class_weights_from_freq(s_l, s_v, model.num_classes),
+                         device=dev)
+
+    steps_per_epoch = len(train_idx) // batch
+    total = max(1, epochs * steps_per_epoch)
+    schedule, state = create_train_state(model, seed, learning_rate=lr,
+                                         total_steps=total, device=dev)
+    step_fn = make_train_step(schedule, class_weights=cw)
+
+    cache = {int(j): (s_i[k], s_l[k], s_v[k]) for k, j in enumerate(sample)}
+
+    def fetch(j):
+        j = int(j)
+        if j not in cache:
+            i_, l_, v_ = kitti_dataset(reader, cfg, [j], device=dev)
+            cache[j] = (i_[0], l_[0], v_[0])
+        return cache[j]
+
+    for epoch in range(epochs):
+        ep_order = rng.permutation(train_idx)
+        for bi in range(steps_per_epoch):
+            rows = [fetch(j) for j in ep_order[bi * batch:(bi + 1) * batch]]
+            state, m = step_fn(state, *(
+                torch.as_tensor(np.stack([r[k] for r in rows]), device=dev)
+                for k in range(3)))
+            if bi % 10 == 0:
+                loss, acc = _log_metrics(m)
+                log(f"epoch {epoch} step {bi}/{steps_per_epoch}: "
+                    f"loss={loss:.3f} acc={acc:.3f}")
+
+    seg = _trained_segmenter(cfg, state.model, dev)
+    va_i, va_l, va_v = kitti_dataset(reader, cfg, val_idx, device=dev)
+    m, per_class = evaluate_miou(seg, va_i, va_l, va_v)
+    log(f"val mIoU = {m:.3f}  per-class={per_class}")
+    return seg, m

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>.so`` inside the package (a directory
-git ignores), then loaded with ``ctypes``. Nothing is compiled when a module
+git ignores; :func:`set_build_dir`, the CLI's ``--cache-dir``, names
+another), then loaded with ``ctypes``. Nothing is compiled when a module
 is imported: the first wrapper call on a CUDA tensor builds its library, and
 :func:`build_all` builds every source at once, one ``nvcc`` process per
 source, all started together.
@@ -35,6 +36,13 @@ def _nvcc() -> str:
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def set_build_dir(path) -> None:
+    """Build the kernels into (and load them from) ``path`` from now on;
+    libraries already loaded stay loaded."""
+    global BUILD
+    BUILD = Path(path).resolve()
 
 
 def _lib_path(name: str) -> Path:

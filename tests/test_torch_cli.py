@@ -13,8 +13,14 @@ configuration has it), 12 noise-free synthetic scans:
   and a free run amplifies rounding: ROADMAP section 3);
 * the stats JSONL records and the evaluation JSON carry the JAX CLI's keys;
 * ``eval`` of the exported file gives ``run --eval``'s numbers;
-* every flag whose module is not ported ends the run with an error naming
-  that module, and without ``--cpu`` and without a GPU ``run`` raises;
+* ``--plot-dir`` (on ``run`` and ``eval``) writes the files the JAX CLI
+  writes, by name, none empty; ``--save-viewer`` writes a self-contained
+  WebGL page; ``--save-checkpoint`` writes an archive that ``--resume``
+  continues (the port's and the JAX CLI's), from the scan after the last
+  one saved; ``--cache-dir`` names the kernels' build directory;
+* ``--sharded``, whose module is not ported, ends the run with an error
+  naming that module, and without ``--cpu`` and without a GPU ``run``
+  raises;
 * ``--segmenter-weights`` labels every scan with the network, on the
   synthetic world and on a KITTI directory with ``--no-gt-labels``.
 """
@@ -70,7 +76,10 @@ def runs(tmp_path_factory):
         buf, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             extra = ("--save-map", str(tmp / f"{tag}.ply"),
-                     "--save-cloud", str(tmp / f"{tag}_cloud.ply"))
+                     "--save-cloud", str(tmp / f"{tag}_cloud.ply"),
+                     "--plot-dir", str(tmp / f"{tag}_plots"),
+                     "--save-viewer", str(tmp / f"{tag}.html"),
+                     "--save-checkpoint", str(tmp / f"{tag}.npz"))
             assert main(_args(tmp, tag, extra)) == 0
         outs.append(buf.getvalue())
         (tmp / f"{tag}.err").write_text(err.getvalue())
@@ -163,28 +172,106 @@ def test_eval_command_matches_run_eval(runs, capsys):
 
 
 REFUSED = [
-    (["run", "--synthetic", "2", "--save-checkpoint", "c.npz"],
-     "utils/checkpoint"),
-    (["run", "--synthetic", "2", "--resume", "c.npz"], "utils/checkpoint"),
     (["run", "--synthetic", "2", "--sharded", "2"], "parallel/sharding"),
-    (["run", "--synthetic", "2", "--save-viewer", "m.html"], "utils/viz3d"),
-    (["run", "--synthetic", "2", "--plot-dir", "plots"], "utils/viz"),
-    (["eval", "--gt", "a.txt", "--est", "b.txt", "--plot-dir", "plots"],
-     "utils/viz"),
-    (["train-segmenter", "--synthetic", "4", "--out", "w.pkl"],
-     "models/segmenter"),
 ]
 
 
 @pytest.mark.parametrize("argv,module", REFUSED,
-                         ids=[a[0] + ":" + (a[-2] if a[0] != "train-segmenter"
-                                            else "cmd") for a, _ in REFUSED])
+                         ids=[a[0] + ":" + a[-2] for a, _ in REFUSED])
 def test_unported_flags_are_refused(argv, module, capsys):
     with pytest.raises(SystemExit) as exc:
         tcli.main(["--cpu", *argv])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert module in err and "not ported" in err
+
+
+def _files(path):
+    return sorted(p.name for p in path.iterdir())
+
+
+def test_run_plot_dir_writes_the_jax_cli_files(runs):
+    tmp, _, _ = runs
+    names = _files(tmp / "port_plots")
+    assert names == _files(tmp / "jax_plots") == [
+        "errors.png", "model_depth.png", "model_normals.png",
+        "model_semantics.png", "stats.png", "traj.png"]
+    for name in names:
+        assert (tmp / "port_plots" / name).stat().st_size > 0, name
+
+
+def test_eval_plot_dir_writes_the_jax_cli_files(runs, tmp_path):
+    tmp, _, _ = runs
+    from semantic_suma_tpu_torch.io.kitti import save_poses
+    from semantic_suma_tpu_torch.io.simulation import circular_trajectory
+    gt = tmp_path / "gt.txt"
+    save_poses(str(gt), circular_trajectory(N, 18.0, step=1.0).numpy())
+    argv = ["eval", "--gt", str(gt), "--est", str(tmp / "port.txt"),
+            "--eval-breakdown", "--plot-dir"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tcli.main(["--cpu", *argv, str(tmp_path / "t")]) == 0
+        assert jcli.main(["--cpu", *argv, str(tmp_path / "j")]) == 0
+    assert _files(tmp_path / "t") == _files(tmp_path / "j") == [
+        "errors.png", "traj.png"]
+
+
+def test_save_viewer_writes_a_standalone_page(runs):
+    import base64
+    import re
+    tmp, _, _ = runs
+    html = (tmp / "port.html").read_text()
+    assert "<canvas" in html and "<script src" not in html
+    blobs = re.findall(r'decode\("([A-Za-z0-9+/=]*)"', html)
+    assert len(blobs) == 4
+    pos = np.frombuffer(base64.b64decode(blobs[0]), np.float32)
+    traj = np.frombuffer(base64.b64decode(blobs[2]), np.float32)
+    assert pos.size > 3000 and np.isfinite(pos).all()
+    assert traj.size == 3 * N
+
+
+@pytest.mark.parametrize("tag", ["port", "jax"])
+def test_resume_continues_a_saved_run(runs, tag, tmp_path, capsys):
+    """``--resume`` of the archive a run of either CLI saved after its 12
+    scans, over 16: four more scans, the first 12 poses the saved run's (to
+    the pose file's nine digits), and all 16 within 5 cm of an unstopped
+    16-scan run (``tests/test_cli.py``'s bound: the compaction on save
+    reorders the surfels, and a free run amplifies the rounding)."""
+    from semantic_suma_tpu_torch.io.kitti import load_poses
+    tmp, _, _ = runs
+    argv = _args(tmp_path, "resumed")
+    argv[argv.index("--synthetic") + 1] = str(N + 4)
+    assert tcli.main([*argv, "--resume", str(tmp / f"{tag}.npz")]) == 0
+    captured = capsys.readouterr()
+    assert f"resumed at scan {N} from" in captured.err
+    assert "processed 4 scans in " in captured.out
+    got = load_poses(str(tmp_path / "resumed.txt"))
+    assert got.shape == (N + 4, 4, 4)
+    saved = load_poses(str(tmp / f"{tag}.txt"))
+    np.testing.assert_allclose(got[:N], saved, rtol=0, atol=1e-6)
+    argv = _args(tmp_path, "whole")
+    argv[argv.index("--synthetic") + 1] = str(N + 4)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tcli.main(argv) == 0
+    np.testing.assert_allclose(got, load_poses(str(tmp_path / "whole.txt")),
+                               rtol=0, atol=5e-2)
+
+
+def test_cache_dir_names_the_build_directory(tmp_path, monkeypatch, capsys):
+    from semantic_suma_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD", cuda_build.BUILD)
+    assert tcli.main(["--cpu", "--cache-dir", str(tmp_path / "kernels"),
+                      "run", "--synthetic", "1", "--no-loop-closure",
+                      "--config", str(_xml(tmp_path)),
+                      "--surfel-capacity", str(1 << 15),
+                      "--active-capacity", str(1 << 13)]) == 0
+    assert cuda_build.BUILD == (tmp_path / "kernels").resolve()
+    assert cuda_build._lib_path("zbuffer").parent == cuda_build.BUILD
+
+
+def _xml(tmp_path):
+    cfg = tmp_path / "cfg.xml"
+    cfg.write_text(XML)
+    return cfg
 
 
 @pytest.mark.parametrize("source", ["synthetic", "dataset"])

@@ -1,8 +1,11 @@
 """The port stands alone: importing ``semantic_suma_tpu_torch`` and every one
 of its modules loads neither JAX (nor flax or optax) nor the JAX package, no
 source of the port (nor ``chip_smoke.py``) imports them, and a whole CLI run
-(spill, KITTI files, evaluation, the stats log and the PLY exports) and a
-segmenter loaded from a versioned weight file load none of them."""
+(spill, KITTI files, evaluation, the stats log and the PLY exports), a
+segmenter loaded from a versioned weight file, a training run with its
+plots, checkpoint and viewer, and a ``run --resume`` of an archive that the
+JAX package wrote (with loop candidates, in a process where importing JAX
+fails) load none of them."""
 import ast
 import json
 import os
@@ -152,4 +155,114 @@ def test_segmenter_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for m in SEGMENTER_MODULES:
         assert m in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+# the modules of the training, checkpoint and plot slice
+TRAIN_MODULES = (
+    "semantic_suma_tpu_torch.models.segmenter",
+    "semantic_suma_tpu_torch.utils.checkpoint",
+    "semantic_suma_tpu_torch.utils.viz",
+    "semantic_suma_tpu_torch.utils.viz3d",
+)
+
+
+def test_train_checkpoint_and_viz_load_no_jax(tmp_path):
+    """``train-segmenter``, then a run with ``--plot-dir``,
+    ``--save-viewer`` and ``--save-checkpoint``, in a fresh interpreter:
+    every module loaded is free of JAX, flax and optax."""
+    assert set(TRAIN_MODULES) <= set(_modules())
+    xml = tmp_path / "small.xml"
+    xml.write_text(
+        '<config><param name="data_width" type="integer">120</param>'
+        '<param name="data_height" type="integer">24</param>'
+        '<param name="model_width" type="integer">120</param>'
+        '<param name="model_height" type="integer">24</param></config>')
+    common = ["--config", str(xml), "--no-loop-closure", "--surfel-capacity",
+              str(1 << 15), "--active-capacity", str(1 << 13)]
+    code = (
+        "import json, sys\n"
+        "from semantic_suma_tpu_torch import cli\n"
+        "from semantic_suma_tpu_torch.config import DataConfig\n"
+        "from semantic_suma_tpu_torch.models import rangenet, segmenter\n"
+        "seg, m = segmenter.train_synthetic(DataConfig(width=96, height=16), "
+        "n_train=2, n_val=1, steps=2, batch=2, device='cpu')\n"
+        f"seg.save({str(tmp_path / 'w.pkl')!r})\n"
+        f"assert cli.main(['--cpu', 'run', '--synthetic', '3', '--plot-dir', "
+        f"{str(tmp_path / 'plots')!r}, '--save-viewer', "
+        f"{str(tmp_path / 'v.html')!r}, '--save-checkpoint', "
+        f"{str(tmp_path / 'c.npz')!r}] + {common!r}) == 0\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for m in TRAIN_MODULES:
+        assert m in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert (tmp_path / "c.npz").is_file() and (tmp_path / "v.html").is_file()
+
+
+def test_resume_of_a_jax_archive_needs_no_jax(tmp_path):
+    """The JAX package writes an archive of a session at the CLI's sizing of
+    the small XML, loop closure on, with a candidate in each list of its
+    closer; ``cli run --resume`` of it in a fresh interpreter where
+    ``import jax`` and ``import semantic_suma_tpu`` fail."""
+    import argparse
+
+    import numpy as np
+
+    from semantic_suma_tpu import cli as jcli
+    from semantic_suma_tpu.core import loop_closure as jlc
+    from semantic_suma_tpu.core.pipeline import SurfelSLAM as JSlam
+    from semantic_suma_tpu.io.simulation import (SimulationReader,
+                                                 default_world)
+    from semantic_suma_tpu.utils.checkpoint import save_checkpoint
+
+    xml = tmp_path / "small.xml"
+    xml.write_text(
+        '<config><param name="data_width" type="integer">120</param>'
+        '<param name="data_height" type="integer">24</param>'
+        '<param name="model_width" type="integer">120</param>'
+        '<param name="model_height" type="integer">24</param></config>')
+    caps = dict(surfel_capacity=1 << 15, active_capacity=1 << 13)
+    cfg = jcli.build_config(argparse.Namespace(
+        config=str(xml), max_scans=None, approach=None, no_semantics=False,
+        no_loop_closure=False, **caps))
+    assert cfg.loop.enabled
+    reader = SimulationReader(cfg.data, n_scans=4, world=default_world(seed=0),
+                              radius=18.0, step=1.0)
+    slam = JSlam(cfg)
+    for i in range(4):
+        s = reader.read(i)
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+    for lst, (frm, to) in ((slam._loop.verified, (3, 0)),
+                           (slam._loop.unverified, (3, 1))):
+        lst.append(jlc.LoopClosureCandidate(
+            frm=frm, to=to, rel_pose=np.linalg.inv(slam.poses[frm])
+            @ slam._loop.posegraph.pose(to)))
+    ckpt = str(tmp_path / "jax.npz")
+    save_checkpoint(slam, ckpt)
+
+    argv = ["--cpu", "run", "--config", str(xml), "--surfel-capacity",
+            str(caps["surfel_capacity"]), "--active-capacity",
+            str(caps["active_capacity"]), "--synthetic", "7", "--resume", ckpt,
+            "--eval"]
+    code = (
+        "import json, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'semantic_suma_tpu'):"
+        "\n    sys.modules[name] = None\n"
+        "from semantic_suma_tpu_torch import cli\n"
+        f"assert cli.main({argv!r}) == 0\n"
+        "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+        "                        if v is not None)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "resumed at scan 4 from" in out.stderr
+    assert "processed 3 scans in " in out.stdout
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "semantic_suma_tpu_torch.utils.checkpoint" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
