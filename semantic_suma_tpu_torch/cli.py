@@ -23,13 +23,18 @@ files' labels. ``--save-checkpoint`` / ``--resume`` write and read the JAX
 package's session archive (``utils/checkpoint``), ``--plot-dir`` its PNGs
 (``utils/viz``) and ``--save-viewer`` its WebGL page (``utils/viz3d``). The
 top-level ``--cache-dir`` names the directory the CUDA kernels are built
-into. ``--sharded`` needs ``parallel/``, which is not ported: it ends the
-run with an error that names the missing module.
+into. ``run --sharded N`` runs the sharded pipeline (``parallel/``) as N
+ranks on this host: the CLI starts them itself, every rank drives the same
+scans, rank 0's lines are printed and rank 0 writes the exports; the
+backend follows ``parallel.distributed``'s rule and the exit code is
+non-zero if any rank fails. No flag is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import sys
@@ -39,12 +44,6 @@ from dataclasses import replace
 
 import numpy as np
 import torch
-
-# flag -> the module of the JAX package it needs that the port lacks
-NOT_PORTED = {
-    "sharded": ("--sharded", "parallel/sharding"),
-}
-
 
 def _add_common(p):
     p.add_argument("--config", help="reference-format XML config file")
@@ -56,7 +55,10 @@ def _add_common(p):
     p.add_argument("--surfel-capacity", type=int, default=1 << 21)
     p.add_argument("--active-capacity", type=int, default=1 << 18)
     p.add_argument("--sharded", type=int, default=None, metavar="N",
-                   help="not ported: the multi-device pipeline")
+                   help="run the sharded pipeline as N ranks on this host "
+                        "(the map split over the ranks; the backend is "
+                        "nccl if every rank has a card of its own, else "
+                        "gloo)")
 
 
 def build_config(args):
@@ -137,13 +139,8 @@ def save_cloud_ply(path: str, cloud: np.ndarray) -> None:
     print(f"wrote {cloud.shape[0]} points to {path}")
 
 
-def cmd_run(args) -> int:
-    from .core.pipeline import SurfelSLAM
-    from .device import resolve_device
-    from .utils import metrics
-
-    cfg = build_config(args)
-    device = resolve_device("cpu" if args.cpu else None)
+def _open_source(args, cfg, device):
+    """(reader, gt poses or None, scan count, get_scan) of a run."""
     segmenter = None
     if args.segmenter_weights:
         from .models.segmenter import Segmenter
@@ -180,7 +177,10 @@ def cmd_run(args) -> int:
             s = reader.read(i)
             return s.points, s.labels, s.probs, None
 
-    count = min(count, args.max_scans or count)
+    return reader, gt, min(count, args.max_scans or count), get_scan
+
+
+def _build_kernels(device) -> None:
     if device.type == "cuda":
         # the kernels build at first use: build them here, so that the
         # compiler's time stands on its own line and not in the first scans
@@ -189,24 +189,54 @@ def cmd_run(args) -> int:
         built = cuda_build.build_all()
         print(f"kernels built in {time.perf_counter() - t_b:.1f}s "
               f"({sorted(built) or 'none stale'})", file=sys.stderr)
-    if args.resume:
+
+
+def cmd_run(args) -> int:
+    from .device import resolve_device
+    device = resolve_device("cpu" if args.cpu else None)
+    if args.sharded:
+        return _run_sharded(args, device)
+    _drive(args, device)
+    return 0
+
+
+def _drive(args, device, mesh=None):
+    """The drive of ``run``: on one device, or (``mesh``) as one rank of
+    the sharded pipeline, where every rank drives the same scans and only
+    rank 0 prints and writes the exports. Returns the session."""
+    from .utils import metrics
+
+    cfg = build_config(args)
+    reader, gt, count, get_scan = _open_source(args, cfg, device)
+    t_l = time.perf_counter()
+    if mesh is None:
+        from .core.pipeline import SurfelSLAM
         from .utils.checkpoint import load_checkpoint
-        slam = load_checkpoint(args.resume, cfg, device=device)
-        start = len(slam.poses)
-        print(f"resumed at scan {start} from {args.resume}", file=sys.stderr)
+        _build_kernels(device)
+        slam = load_checkpoint(args.resume, cfg, device=device) \
+            if args.resume else SurfelSLAM(cfg, device=device)
     else:
-        slam = SurfelSLAM(cfg, device=device)
-        start = 0
+        from .parallel.sharding import ShardedSurfelSLAM
+        from .utils.checkpoint import load_checkpoint_sharded
+        slam = load_checkpoint_sharded(args.resume, cfg, mesh) \
+            if args.resume else ShardedSurfelSLAM(cfg, mesh)
+    start = len(slam.poses)
+    if args.resume:
+        print(f"resumed{' sharded' if mesh else ''} at scan {start} from "
+              f"{args.resume}", file=sys.stderr)
+        print(f"checkpoint loaded in {time.perf_counter() - t_l:.3f} s",
+              file=sys.stderr)
+    lead = mesh is None or mesh.rank == 0
 
     evlog = None
-    if args.stats_json:
+    if args.stats_json and lead:
         from .utils.eventlog import EventLog
         # mode "w": each run writes a self-contained JSONL file (readers
         # count its scan records as scans)
         evlog = EventLog("run", args.stats_json, mode="w")
 
     accum = None
-    if args.save_cloud:
+    if args.save_cloud and lead:
         from .utils.scan_accumulator import ScanAccumulator
         accum = ScanAccumulator(history_size=count,
                                 stride=max(1, count // 200))
@@ -231,7 +261,8 @@ def cmd_run(args) -> int:
                   f"loops={stats.get('loop-closures', 0)}", file=sys.stderr)
 
     slam.stats_callback = on_stats
-    if slam._loop is not None and slam.supports_fused_verify:
+    if slam._loop is not None and getattr(slam, "supports_fused_verify",
+                                          False):
         # build every loop-phase routine before the drive, not mid-lap
         t_w = time.perf_counter()
         slam._loop.warmup(slam)
@@ -248,7 +279,9 @@ def cmd_run(args) -> int:
             pend_pts.append(pts)
             pend_valid.append(valid)
         slam.process_scan_async(pts, labels, probs, valid)
-    slam.finalize()  # drain, then one last pose-graph solve over all edges
+    # drain, then (one device) one last pose-graph solve over all edges; the
+    # sharded session has no finalize, as in the JAX package
+    getattr(slam, "finalize", slam.flush)()
     wall = time.perf_counter() - t0
     n_done = count - start
     est = slam.trajectory()
@@ -261,23 +294,37 @@ def cmd_run(args) -> int:
         msg += f" [steady-state {sps:.2f} scans/s]"
     print(msg)
     sp = slam.spill
+    spill = [sp.spilled_rows, len(sp.chunks), sp.chunks_paged_in, sp.probes,
+             sp.futile_verdicts, sp.stale_verdicts] if sp is not None \
+        else [0] * 6
+    if mesh is not None:  # every rank's counters, summed
+        spill = np.sum(mesh.group.objects(spill), axis=0)
     print(f"map {slam.statistics[-1]['map-count'] if slam.statistics else 0}"
           f" surfels; creations dropped {slam.creations_dropped}; spill: "
-          + (f"{sp.spilled_rows} rows in {len(sp.chunks)} chunks, "
-             f"{sp.chunks_paged_in} chunks paged in, {sp.probes} probes "
-             f"({sp.futile_verdicts} futile, {sp.stale_verdicts} stale)"
-             if sp is not None else "off"), file=sys.stderr)
-    sw = slam.stopwatch
-    if args.verbose:
+          + (f"{spill[0]} rows in {spill[1]} chunks, {spill[2]} chunks "
+             f"paged in, {spill[3]} probes ({spill[4]} futile, {spill[5]} "
+             "stale)" if sp is not None else "off"), file=sys.stderr)
+    lc = slam._loop
+    if lc is not None:
+        print(f"loop closures {lc.num_loop_closures}, optimizations "
+              f"{lc.num_optimizations}, rebases {lc.num_rebases}",
+              file=sys.stderr)
+    sw = getattr(slam, "stopwatch", None)
+    if args.verbose and sw is not None:
         print(sw.report(), file=sys.stderr)
-    if evlog is not None:
+    if evlog is not None and sw is not None:
         evlog.log("stage-times", **{k: v["mean_ms"] for k, v in
                                     sw.summary().items()})
 
     if args.save_checkpoint:
         from .utils.checkpoint import save_checkpoint
+        t_s = time.perf_counter()
         save_checkpoint(slam, args.save_checkpoint)
         print(f"checkpoint -> {args.save_checkpoint}", file=sys.stderr)
+        print(f"checkpoint saved in {time.perf_counter() - t_s:.3f} s",
+              file=sys.stderr)
+    if not lead:
+        return slam
 
     if args.export_poses:
         from .io.kitti import save_poses
@@ -288,11 +335,20 @@ def cmd_run(args) -> int:
         evlog.close()
 
     if args.save_map:
-        save_map_ply(args.save_map, slam.state, cfg.map)
+        if mesh is None:
+            save_map_ply(args.save_map, slam.state, cfg.map)
+        else:
+            print("--save-map: sharded sessions are exported per shard via "
+                  "--save-checkpoint; PLY export is single-chip only",
+                  file=sys.stderr)
 
     if args.save_viewer:
-        from .utils.viz3d import export_map_html
-        export_map_html(args.save_viewer, slam.state, cfg.map, trajectory=est)
+        if mesh is None:
+            from .utils.viz3d import export_map_html
+            export_map_html(args.save_viewer, slam.state, cfg.map,
+                            trajectory=est)
+        else:
+            print("--save-viewer is single-chip only", file=sys.stderr)
 
     if accum is not None:
         save_cloud_ply(args.save_cloud, accum.world_cloud(max_points=2_000_000))
@@ -306,7 +362,7 @@ def cmd_run(args) -> int:
                             loops, os.path.join(args.plot_dir, "traj.png"))
         viz.plot_statistics(slam.statistics,
                             path=os.path.join(args.plot_dir, "stats.png"))
-        viz.save_map_images(slam.state.model_maps,
+        viz.save_map_images(slam.model_maps,
                             prefix=os.path.join(args.plot_dir, "model"))
 
     if args.eval and gt is not None:
@@ -318,7 +374,80 @@ def cmd_run(args) -> int:
                 res["by_length"], res["by_speed"],
                 path=os.path.join(args.plot_dir, "errors.png"))
         print(json.dumps(res, indent=2))
+    return slam
+
+
+# what the ranks of the last ``run --sharded`` returned (in this process):
+# per rank its kernel launches, collectives, peak memory and poses
+last_ranks: list = []
+
+
+def _launch_counts() -> dict:
+    from .ops.bilateral import bilateral_filter
+    from .ops.knn import knn_clean_image
+    from .ops.zbuffer import zbuffer_cells
+    return {"bilateral_filter": bilateral_filter.launches,
+            "zbuffer_cells": zbuffer_cells.launches,
+            "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
+            "knn_clean_image": knn_clean_image.launches}
+
+
+def _run_sharded(args, device, backend=None) -> int:
+    """``run --sharded``: start the ranks, print rank 0's lines, and the
+    ranks' launches, collectives and peak memory as one JSON line on
+    stderr. ``backend=None`` applies ``parallel.distributed``'s rule."""
+    from .ops import cuda_build
+    from .parallel import distributed
+    global last_ranks
+    _build_kernels(device)
+    n = args.sharded
+    try:
+        ranks = distributed.launch(
+            _sharded_rank, n, (args,), cpu=device.type == "cpu",
+            backend=backend, timeout_s=600.0,
+            threads=max(1, (os.cpu_count() or 1) // n),
+            build_dir=cuda_build.BUILD)
+    except Exception as e:  # a rank failed or the ranks timed out
+        print(f"ERROR: sharded run failed: {e}", file=sys.stderr)
+        return 1
+    last_ranks = ranks
+    sys.stdout.write(ranks[0]["stdout"])
+    sys.stderr.write(ranks[0]["stderr"])
+    print("sharded ranks: " + json.dumps(
+        [{k: jsonable(r[k]) for k in ("rank", "launches", "collectives",
+                                      "peak_mib")} for r in ranks]),
+        file=sys.stderr)
     return 0
+
+
+def jsonable(x):
+    """``x`` with tuple dictionary keys (kernel B's launches by shape) as
+    ``"n,flags"`` strings."""
+    if isinstance(x, dict):
+        return {",".join(map(str, k)) if isinstance(k, tuple) else k:
+                jsonable(v) for k, v in x.items()}
+    return x
+
+
+def _sharded_rank(rank: int, device, args) -> dict:
+    """One rank of ``run --sharded``: :func:`_drive` on this rank's shard;
+    rank 0's printed lines are returned, the other ranks' dropped."""
+    from .parallel.distributed import backend
+    from .parallel.sharding import make_mesh
+    mesh = make_mesh(args.sharded, device=device)
+    mesh.group.timing = True
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        slam = _drive(args, device, mesh)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**20
+            if device.type == "cuda" else None)
+    return {"rank": rank, "backend": backend(),
+            "stdout": out.getvalue() if rank == 0 else "",
+            "stderr": err.getvalue() if rank == 0 else "",
+            "launches": _launch_counts(),
+            "collectives": {"counts": dict(mesh.group.counts),
+                            "timed": mesh.group.summary()},
+            "peak_mib": peak, "poses": slam.trajectory()}
 
 
 def cmd_eval(args) -> int:
@@ -381,7 +510,8 @@ def cmd_train_segmenter(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The parsed command line (exits with the usage on an error)."""
     ap = argparse.ArgumentParser(prog="semantic_suma_tpu_torch")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch versions of the "
@@ -461,16 +591,18 @@ def main(argv=None) -> int:
     trainp.set_defaults(fn=cmd_train_segmenter)
 
     args = ap.parse_args(argv)
-    for dest, (flag, module) in NOT_PORTED.items():
-        if getattr(args, dest, None) is not None:
-            ap.error(f"{flag} needs {module}, which is not ported yet")
-    if args.cache_dir:
-        from .ops import cuda_build
-        cuda_build.set_build_dir(args.cache_dir)
     if args.cmd == "run" and not (args.dataset or args.synthetic):
         ap.error("run requires --dataset or --synthetic")
     if args.cmd == "train-segmenter" and not (args.dataset or args.synthetic):
         ap.error("train-segmenter requires --dataset or --synthetic")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.cache_dir:
+        from .ops import cuda_build
+        cuda_build.set_build_dir(args.cache_dir)
     return args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Carry state across from the JAX package: the simulated world, the SLAM
-state, the pose graph and the loop closer's host state, so both packages can
-start from the same mid-run point; the segmenter's weights both ways; and
+state (a sharded session's shards too), the pose graph and the loop closer's
+host state, so both packages can start from the same mid-run point; the segmenter's weights both ways; and
 the state of its optimizer (optax's AdamW) into the port's.
 
 Nothing here imports JAX: the inputs are duck-typed (a JAX ``World``'s boxes,
@@ -217,3 +217,13 @@ def adamw_state_from_optax(opt_state, model) -> dict:
                   "exp_avg": mu[name].to(p.device, p.dtype),
                   "exp_avg_sq": nu[name].to(p.device, p.dtype)}
     return out
+
+
+def sharded_state_from_jax(map_sh, rank: int, device=None) -> sm.MapState:
+    """Rank ``rank``'s ``MapState`` from a JAX ``ShardedSurfelSLAM.map_sh``
+    whose leaves (numpy, e.g. ``jax.tree.map(np.asarray, slam.map_sh)``)
+    carry a leading ``[D]`` shard axis."""
+    def take(tree):
+        return type(tree)(*[take(x) if hasattr(x, "_fields")
+                            else np.asarray(x)[rank] for x in tree])
+    return map_state_from_numpy(take(map_sh), device)

@@ -180,27 +180,35 @@ def odometry_step(state: SlamState, points: torch.Tensor,
     return new_state, info
 
 
-def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
-    """Everything the host loop needs, as ONE f32 vector [50] on the device.
-    Layout: pose [0:16], increment [16:32], se3_log(increment) [32:38], then
-    error, valid, inlier, outlier, inlier_residual, invalid, iterations,
-    track_loss, n_created, n_dropped, map_count, block_count. All counters
-    fit f32 exactly (< 2^24)."""
-    s = info.stats
-    dev = info.pose.device
-    inc = info.increment.to(torch.float32)
-    host_known = torch.tensor(
-        [info.iterations, info.track_loss, info.n_created, info.n_dropped],
-        dtype=torch.float32, device=dev)
+def pack_results(pose, increment, stats: icp_ops.IcpStats, host_counts,
+                 device_counts) -> torch.Tensor:
+    """Everything the host loop needs of one scan, as ONE f32 vector [50] on
+    the device. Layout: pose [0:16], increment [16:32], se3_log(increment)
+    [32:38], then error, valid, inlier, outlier, inlier_residual, invalid,
+    iterations, track_loss, n_created, n_dropped, map_count, block_count;
+    the counters are ``host_counts`` (numbers) followed by
+    ``device_counts`` (a device vector). All counters fit f32 exactly
+    (< 2^24)."""
+    dev = pose.device
+    inc = increment.to(torch.float32)
     return torch.cat([
-        info.pose.to(torch.float32).reshape(-1), inc.reshape(-1),
+        pose.to(torch.float32).reshape(-1), inc.reshape(-1),
         lie.se3_log(inc).reshape(-1),
         torch.stack([x.to(torch.float32).reshape(())
-                     for x in (s.error, s.valid, s.inlier, s.outlier,
-                               s.inlier_residual, s.invalid)]),
-        host_known,
+                     for x in (stats.error, stats.valid, stats.inlier,
+                               stats.outlier, stats.inlier_residual,
+                               stats.invalid)]),
+        torch.tensor(host_counts, dtype=torch.float32, device=dev),
+        device_counts.to(torch.float32)])
+
+
+def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
+    """:func:`pack_results` of one :func:`odometry_step`."""
+    return pack_results(
+        info.pose, info.increment, info.stats,
+        [info.iterations, info.track_loss, info.n_created, info.n_dropped],
         torch.stack([info.map_count.to(torch.float32).reshape(()),
-                     block_count.to(torch.float32).reshape(())])])
+                     block_count.to(torch.float32).reshape(())]))
 
 
 class HostStepInfo(NamedTuple):
@@ -234,7 +242,270 @@ def _unpack_step_info(vec: np.ndarray) -> HostStepInfo:
         map_count=int(t[16]), block_count=int(t[17]))
 
 
-class SurfelSLAM:
+class HostLoop:
+    """The host loop that the single-device session (:class:`SurfelSLAM`)
+    and the sharded one (``parallel.sharding.ShardedSurfelSLAM``) share:
+    the pose log and the statistics, the confidence schedule, the input
+    coercion, the page-in, and the drain of one scan's packed results
+    (:func:`pack_results`) through the near-capacity policy and the loop
+    closer. A session holds its map behind ``_map`` / ``_put_map``, runs its
+    step in ``_step``, and says in ``_agreed`` whether a flag holds for the
+    whole session (for the sharded one: on any rank)."""
+
+    # the near-capacity policy's asynchronous eligibility probe (its
+    # verdict lands a scan later, so a session whose decisions must agree
+    # across ranks scores synchronously)
+    async_probe = True
+    # compaction under pressure: when the live count nears the capacity (the
+    # JAX package's single-device rule), or when the free rows fall under
+    # the headroom (its sharded rule)
+    compact_on_free_rows = False
+
+    def __init__(self, cfg: SumaConfig, map_cfg, scan_rows: int, device,
+                 pipeline_depth: int, enable_loop_closure: bool | None):
+        self.cfg = cfg
+        # the configuration of the arena this session holds (a shard's for
+        # the sharded session), and the rows one scan can create in it
+        self.map_cfg = map_cfg
+        self.scan_rows = scan_rows
+        self.device = device
+        self.pipeline_depth = max(0, pipeline_depth)
+        self._pending: "deque" = deque()
+        self._dispatched = 0
+        self._spill_retry_blocks = 0
+        # host-visible phases on the host clock
+        self.stopwatch = Stopwatch()
+        # called with every finished scan's stats dict (pipelined draining
+        # completes several scans per call, so return values alone
+        # under-report)
+        self.stats_callback = None
+        self.poses: list = []
+        self.statistics: list = []
+        self.trajectory_distances: list = [0.0]
+        self.track_loss_count = 0
+        self.map_version = 0  # bumped on page-in, spill, compaction, rebase
+        # whether a page-in moves map_version
+        self.paging_moves_version = True
+        self.creations_dropped = 0
+        self.syncs = 0
+        # device-frame -> output-frame pose correction: identity except
+        # after a below-gate integration deferred the device rebase
+        # (LoopCloser.integrate); applied to every fetched pose so the
+        # exported trajectory is always the optimized one
+        self.frame_correction = np.eye(4, dtype=np.float32)
+        self._old_cache = None
+        self.spill = None
+        if cfg.map.spill_enabled:
+            self.spill = SpillManager(
+                map_cfg, chunk_blocks=cfg.map.spill_chunk_blocks,
+                spill_margin=cfg.map.spill_margin,
+                unspill_margin=cfg.map.unspill_margin)
+        self._loop = None
+        do_loops = cfg.loop.enabled if enable_loop_closure is None \
+            else enable_loop_closure
+        if do_loops and cfg.approach == "frame-to-model":
+            self._loop = LoopCloser(cfg, device=device)
+
+    # -- what a session provides --------------------------------------------
+    @property
+    def _map(self) -> sm.MapState:
+        raise NotImplementedError
+
+    def _put_map(self, new_map: sm.MapState) -> None:
+        raise NotImplementedError
+
+    def _step(self, points, labels, probs, point_valid, conf_threshold):
+        """Run one scan's device step; returns (packed results, host reads
+        the step made)."""
+        raise NotImplementedError
+
+    def _agreed(self, flag: bool) -> bool:
+        return flag
+
+    # -- shared host state ---------------------------------------------------
+    @property
+    def timestamp(self) -> int:
+        return len(self.poses)
+
+    def trajectory(self) -> np.ndarray:
+        return np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))
+
+    def _conf_at(self, t: int) -> float:
+        """Confidence warmup schedule at scan ``t``."""
+        cfg = self.cfg.map
+        if t < cfg.time_init:
+            a = t / cfg.time_init
+            return (1.0 - a) * cfg.log_unstable + a * cfg.confidence_threshold
+        return cfg.confidence_threshold
+
+    def confidence_threshold(self) -> float:
+        """The schedule at the current DISPATCH count (equals len(poses) in
+        sync mode; runs ahead of it while scans are in flight)."""
+        return self._conf_at(self._dispatched)
+
+    def _set_map(self, new_map) -> None:
+        """Install a map that a page-in, spill or compaction produced."""
+        self._put_map(new_map)
+        self.map_version += 1
+
+    def _page_in(self, center) -> None:
+        """Bring spilled chunks near ``center`` back onto the device, each
+        only if the creations of the scans that run before the next drain,
+        ``(1 + lag)`` scans' rows, still fit behind it (the JAX package
+        pages in up to the last block; ROADMAP section 3)."""
+        if self.spill is None:
+            return
+        st = self.spill.ensure_resident(
+            self._map, center,
+            headroom_rows=(1 + self._inflight()) * self.scan_rows)
+        if st is not None:
+            self._put_map(st)
+        if self.paging_moves_version and self._agreed(st is not None):
+            self.map_version += 1
+
+    # -- dispatch / drain split -------------------------------------------
+    # ``_dispatch`` runs the step and starts the copy of its packed info
+    # vector to the host; ``_drain_one`` completes the host bookkeeping of
+    # the oldest dispatch. ``process_scan`` is fully synchronous (the
+    # loop-closure state machine gets the result before the next scan);
+    # ``process_scan_async`` keeps up to ``pipeline_depth`` scans' host
+    # bookkeeping outstanding.
+
+    def _dispatch(self, points, labels, probs, point_valid) -> None:
+        t_start = time.perf_counter()
+        dev = self.device
+        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        n = points.shape[0]
+        labels = (torch.zeros((n,), dtype=torch.int32, device=dev)
+                  if labels is None else torch.as_tensor(labels, device=dev))
+        probs = (torch.ones((n,), dtype=torch.float32, device=dev)
+                 if probs is None else torch.as_tensor(probs, device=dev))
+        point_valid = (torch.ones((n,), dtype=torch.bool, device=dev)
+                       if point_valid is None
+                       else torch.as_tensor(point_valid, device=dev))
+        ct = self._conf_at(self._dispatched)
+        self._dispatched += 1
+        packed, step_syncs = self._step(points, labels, probs, point_valid,
+                                        ct)
+        self._pending.append((AsyncFetch(packed), t_start, step_syncs))
+        self.stopwatch.record("dispatch", time.perf_counter() - t_start)
+
+    def _inflight(self) -> int:
+        """Scans dispatched whose results the host has not processed yet
+        (excluding the one being drained)."""
+        return len(self._pending)
+
+    def _drain_one(self) -> dict:
+        fetch, t_start, step_syncs = self._pending.popleft()
+        t_f = time.perf_counter()
+        vec = fetch.wait()   # the host loop's one blocking read per scan
+        self.stopwatch.record("fetch-wait", time.perf_counter() - t_f)
+        self.syncs += step_syncs + 1
+        return self._finish_host(vec, t_start)
+
+    def _finish_host(self, vec: np.ndarray, t_start: float) -> dict:
+        info = _unpack_step_info(vec)
+        # map device-frame poses to the output frame (identity unless a
+        # below-gate integration deferred the device rebase)
+        info = info._replace(pose=self.frame_correction @ info.pose)
+        lag = self._inflight()  # scans dispatched after this one
+        t0 = [time.perf_counter()]
+
+        def lap(label):
+            t = time.perf_counter()
+            self.stopwatch.record(label, t - t0[0])
+            t0[0] = t
+
+        # near-capacity policy: first page far blocks to host RAM, then fall
+        # back to stream compaction. A non-zero drop count means the arena
+        # filled before the host got ahead of it: reclaim at once, so that
+        # at most one scan drops, and count what was lost. In pipelined mode
+        # the fetched counters lag by ``lag`` scans, so every headroom test
+        # widens by lag scans' rows (worst-case growth).
+        cap = self.map_cfg.surfel_capacity
+        rows = self.scan_rows
+        n_dropped = info.n_dropped
+        self.creations_dropped += n_dropped
+        pose = info.pose
+        free_rows = cap - info.block_count * self.map_cfg.effective_block_size
+        headroom = (2 + lag) * rows
+        pressure = free_rows < headroom or bool(n_dropped)
+        spilled = False      # this session's map (rank's shard) spilled
+        spilled_any = False  # ... on any rank
+        if self.spill is not None:
+            self._page_in(pose[:3, 3])
+            lap("host/page-in")
+            # a futile attempt (under pressure, nothing beyond the keep
+            # radius) must not repeat every scan: retry only after the arena
+            # grew by a chunk
+            if pressure and info.block_count >= self._spill_retry_blocks:
+                # the asynchronous probe pays only with scans in flight (its
+                # copy hides behind them); lag 0 scores at once, and active
+                # dropping always reclaims now
+                st = self.spill.maybe_spill(
+                    self._map, pose[:3, 3], headroom_rows=headroom,
+                    async_probe=(self.async_probe and not n_dropped
+                                 and lag > 0),
+                    version=self.map_version)
+                if st is not None:
+                    self._put_map(st)  # maybe_spill compacts
+                    spilled = True
+                spilled_any = self._agreed(spilled)
+                if spilled_any:
+                    self._spill_retry_blocks = 0
+                    lap("host/spill-out")
+                else:
+                    if not self.spill.probe_pending:
+                        # futile verdict (probe or synchronous path): do not
+                        # score again until the arena grows a chunk; while
+                        # the probe is in flight, leave the threshold unset
+                        # so that its verdict is read next scan
+                        self._spill_retry_blocks = (info.block_count
+                                                    + self.spill.chunk_blocks)
+                    lap("host/spill-probe")
+        compact = bool(n_dropped) or (
+            pressure if self.compact_on_free_rows
+            else info.map_count + (1 + lag) * rows > cap)
+        if compact and not spilled:
+            self._put_map(sm.compact(self._map, self.map_cfg))
+        if compact or spilled_any:
+            self.map_version += 1
+        lap("host/spill-compact")
+        self.poses.append(pose)
+        if len(self.poses) > 1:
+            self.trajectory_distances.append(
+                self.trajectory_distances[-1]
+                + float(np.linalg.norm(self.poses[-2][:3, 3] - pose[:3, 3])))
+        self.track_loss_count += int(info.track_loss)
+
+        stats = {
+            "icp-iterations": info.iterations,
+            "icp-error": info.stats.error,
+            "icp-inlier": int(info.stats.inlier),
+            "icp-outlier": int(info.stats.outlier),
+            "icp-valid": int(info.stats.valid),
+            "icp-invalid": int(info.stats.invalid),
+            "track-loss": info.track_loss,
+            "map-count": info.map_count,
+            "surfels-created": info.n_created,
+            "creations-dropped": n_dropped,
+        }
+        lap("host/bookkeep")
+        if self._loop is not None:
+            loop_stats = self._loop.on_scan(self, info, lag=self._inflight())
+            stats.update(loop_stats)
+            if "loop-time" in loop_stats:
+                self.stopwatch.record("loop", loop_stats["loop-time"])
+
+        stats["complete-time"] = time.perf_counter() - t_start
+        self.stopwatch.record("complete", stats["complete-time"])
+        self.statistics.append(stats)
+        if self.stats_callback is not None:
+            self.stats_callback(stats)
+        return stats
+
+
+class SurfelSLAM(HostLoop):
     """Host-side loop: owns the device state, the pose log, the statistics,
     the host-RAM spill of the arena (``cfg.map.spill_enabled``) and (when
     enabled) the loop-closure state machine. Runs on the card unless the
@@ -249,46 +520,14 @@ class SurfelSLAM:
         if chunk_size > 1:
             raise NotImplementedError(
                 "chunked dispatch is not ported yet: use chunk_size=1")
-        self.cfg = cfg
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
+        super().__init__(cfg, cfg.map, cfg.data.height * cfg.data.width, dev,
+                         pipeline_depth, enable_loop_closure)
         self.state = init_state(cfg, self.device)
+        # device time per stage of the step, when set
         self.timer: StageTimer | None = None
-        # host-visible phases on the host clock (device time per stage of the
-        # step is the StageTimer's)
-        self.stopwatch = Stopwatch()
-        self.pipeline_depth = max(0, pipeline_depth)
-        self._pending: "deque" = deque()
-        self._dispatched = 0
-        self._spill_retry_blocks = 0
-        # called with every finished scan's stats dict (pipelined draining
-        # completes several scans per call, so return values alone
-        # under-report)
-        self.stats_callback = None
-        self.poses: list = []
-        self.statistics: list = []
-        self.trajectory_distances: list = [0.0]
-        self.track_loss_count = 0
-        self.map_version = 0  # bumped on compaction / pose rebase
-        self.creations_dropped = 0
-        self.syncs = 0
-        # device-frame -> output-frame pose correction: identity except
-        # after a below-gate integration deferred the device rebase
-        # (LoopCloser.integrate); applied to every fetched pose so the
-        # exported trajectory is always the optimized one
-        self.frame_correction = np.eye(4, dtype=np.float32)
-        self._loop = None
-        self._old_cache = None
         self._verify_cache = None
-        self.spill = None
-        if cfg.map.spill_enabled:
-            self.spill = SpillManager(
-                cfg.map, chunk_blocks=cfg.map.spill_chunk_blocks,
-                spill_margin=cfg.map.spill_margin,
-                unspill_margin=cfg.map.unspill_margin)
-        do_loops = cfg.loop.enabled if enable_loop_closure is None \
-            else enable_loop_closure
-        if do_loops and cfg.approach == "frame-to-model":
-            self._loop = LoopCloser(cfg, device=self.device)
+        if self._loop is not None:
             # this host loop supports the device-carried verification chain
             self._loop.pipelined_ok = cfg.loop.pipelined_verification
         # reduced read-only view for the chained per-scan verification
@@ -300,8 +539,17 @@ class SurfelSLAM:
         self._verify_blocks = min(vb, k_blocks)
 
     @property
-    def timestamp(self) -> int:
-        return len(self.poses)
+    def _map(self) -> sm.MapState:
+        return self.state.map
+
+    def _put_map(self, new_map: sm.MapState) -> None:
+        self.state = self.state._replace(map=new_map)
+
+    def _step(self, points, labels, probs, point_valid, conf_threshold):
+        self.state, info = odometry_step(self.state, points, labels, probs,
+                                         point_valid, conf_threshold,
+                                         self.cfg, timer=self.timer)
+        return _pack_step_info(info, self.state.map.block_count), info.syncs
 
     # accessors the LoopCloser reads instead of unpacking SlamState
     @property
@@ -341,26 +589,8 @@ class SurfelSLAM:
         return sm.render_view(view, self._tensor(pose), self.cfg.model,
                               self.cfg.map, conf, thr, "old")
 
-    def _set_map(self, new_map) -> None:
-        """Install a map that a page-in, spill or compaction produced."""
-        self.state = self.state._replace(map=new_map)
-        self.map_version += 1
-
     def compact_map(self) -> None:
         self._set_map(sm.compact(self.state.map, self.cfg.map))
-
-    def _page_in(self, center) -> None:
-        """Bring spilled chunks near ``center`` back onto the device, each
-        only if the creations of the scans that run before the next drain,
-        ``(1 + lag)`` images, still fit behind it (the JAX package pages in
-        up to the last block; ROADMAP section 3)."""
-        if self.spill is not None:
-            hw = self.cfg.data.height * self.cfg.data.width
-            st = self.spill.ensure_resident(
-                self.state.map, center,
-                headroom_rows=(1 + self._inflight()) * hw)
-            if st is not None:
-                self._set_map(st)
 
     def _ready_old_cache(self, view_pose):
         # the old map a revisit needs may have been paged out: bring the
@@ -434,156 +664,6 @@ class SurfelSLAM:
         if self.spill is not None and self.spill.chunks:
             self.spill.on_rebase(AsyncFetch(table).wait())
         self.map_version += 1
-
-    def _conf_at(self, t: int) -> float:
-        """Confidence warmup schedule at scan ``t``."""
-        cfg = self.cfg.map
-        if t < cfg.time_init:
-            a = t / cfg.time_init
-            return (1.0 - a) * cfg.log_unstable + a * cfg.confidence_threshold
-        return cfg.confidence_threshold
-
-    def confidence_threshold(self) -> float:
-        """The schedule at the current DISPATCH count (equals len(poses) in
-        sync mode; runs ahead of it while scans are in flight)."""
-        return self._conf_at(self._dispatched)
-
-    # -- dispatch / drain split -------------------------------------------
-    # ``_dispatch`` runs the step and starts the copy of its packed info
-    # vector to the host; ``_drain_one`` completes the host bookkeeping of
-    # the oldest dispatch. ``process_scan`` is fully synchronous (the
-    # loop-closure state machine gets the result before the next scan);
-    # ``process_scan_async`` keeps up to ``pipeline_depth`` scans' host
-    # bookkeeping outstanding.
-
-    def _dispatch(self, points, labels, probs, point_valid) -> None:
-        t_start = time.perf_counter()
-        dev = self.device
-        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
-        n = points.shape[0]
-        labels = (torch.zeros((n,), dtype=torch.int32, device=dev)
-                  if labels is None else torch.as_tensor(labels, device=dev))
-        probs = (torch.ones((n,), dtype=torch.float32, device=dev)
-                 if probs is None else torch.as_tensor(probs, device=dev))
-        point_valid = (torch.ones((n,), dtype=torch.bool, device=dev)
-                       if point_valid is None
-                       else torch.as_tensor(point_valid, device=dev))
-        ct = self._conf_at(self._dispatched)
-        self._dispatched += 1
-        self.state, info = odometry_step(self.state, points, labels, probs,
-                                         point_valid, ct, self.cfg,
-                                         timer=self.timer)
-        packed = _pack_step_info(info, self.state.map.block_count)
-        self._pending.append((AsyncFetch(packed), t_start, info.syncs))
-        self.stopwatch.record("dispatch", time.perf_counter() - t_start)
-
-    def _inflight(self) -> int:
-        """Scans dispatched whose results the host has not processed yet
-        (excluding the one being drained)."""
-        return len(self._pending)
-
-    def _drain_one(self) -> dict:
-        fetch, t_start, step_syncs = self._pending.popleft()
-        t_f = time.perf_counter()
-        vec = fetch.wait()   # the host loop's one blocking read per scan
-        self.stopwatch.record("fetch-wait", time.perf_counter() - t_f)
-        self.syncs += step_syncs + 1
-        return self._finish_host(vec, t_start)
-
-    def _finish_host(self, vec: np.ndarray, t_start: float) -> dict:
-        info = _unpack_step_info(vec)
-        # map device-frame poses to the output frame (identity unless a
-        # below-gate integration deferred the device rebase)
-        info = info._replace(pose=self.frame_correction @ info.pose)
-        lag = self._inflight()  # scans dispatched after this one
-        t0 = [time.perf_counter()]
-
-        def lap(label):
-            t = time.perf_counter()
-            self.stopwatch.record(label, t - t0[0])
-            t0[0] = t
-
-        # near-capacity policy: first page far blocks to host RAM, then fall
-        # back to stream compaction. A non-zero drop count means the arena
-        # filled before the host got ahead of it: reclaim at once, so that
-        # at most one scan drops, and count what was lost. In pipelined mode
-        # the fetched counters lag by ``lag`` scans, so every headroom test
-        # widens by lag * hw (worst-case growth).
-        cap = self.cfg.map.surfel_capacity
-        hw = self.cfg.data.height * self.cfg.data.width
-        bs = self.cfg.map.effective_block_size
-        n_dropped = info.n_dropped
-        self.creations_dropped += n_dropped
-        pose = info.pose
-        free_rows = cap - info.block_count * bs
-        headroom = (2 + lag) * hw
-        spilled = False
-        if self.spill is not None:
-            self._page_in(pose[:3, 3])
-            lap("host/page-in")
-            # a futile attempt (under pressure, nothing beyond the keep
-            # radius) must not repeat every scan: retry only after the arena
-            # grew by a chunk
-            if (free_rows < headroom or n_dropped) \
-                    and info.block_count >= self._spill_retry_blocks:
-                # the asynchronous probe pays only with scans in flight (its
-                # copy hides behind them); lag 0 scores at once, and active
-                # dropping always reclaims now
-                st = self.spill.maybe_spill(self.state.map, pose[:3, 3],
-                                            headroom_rows=headroom,
-                                            async_probe=(not n_dropped
-                                                         and lag > 0),
-                                            version=self.map_version)
-                if st is not None:
-                    self._set_map(st)  # maybe_spill compacts
-                    self._spill_retry_blocks = 0
-                    spilled = True
-                    lap("host/spill-out")
-                else:
-                    if not self.spill.probe_pending:
-                        # futile verdict (probe or synchronous path): do not
-                        # score again until the arena grows a chunk; while
-                        # the probe is in flight, leave the threshold unset
-                        # so that its verdict is read next scan
-                        self._spill_retry_blocks = (info.block_count
-                                                    + self.spill.chunk_blocks)
-                    lap("host/spill-probe")
-        if not spilled and (info.map_count + (1 + lag) * hw > cap
-                            or n_dropped):
-            self.compact_map()
-        lap("host/spill-compact")
-        self.poses.append(pose)
-        if len(self.poses) > 1:
-            self.trajectory_distances.append(
-                self.trajectory_distances[-1]
-                + float(np.linalg.norm(self.poses[-2][:3, 3] - pose[:3, 3])))
-        self.track_loss_count += int(info.track_loss)
-
-        stats = {
-            "icp-iterations": info.iterations,
-            "icp-error": info.stats.error,
-            "icp-inlier": int(info.stats.inlier),
-            "icp-outlier": int(info.stats.outlier),
-            "icp-valid": int(info.stats.valid),
-            "icp-invalid": int(info.stats.invalid),
-            "track-loss": info.track_loss,
-            "map-count": info.map_count,
-            "surfels-created": info.n_created,
-            "creations-dropped": n_dropped,
-        }
-        lap("host/bookkeep")
-        if self._loop is not None:
-            loop_stats = self._loop.on_scan(self, info, lag=self._inflight())
-            stats.update(loop_stats)
-            if "loop-time" in loop_stats:
-                self.stopwatch.record("loop", loop_stats["loop-time"])
-
-        stats["complete-time"] = time.perf_counter() - t_start
-        self.stopwatch.record("complete", stats["complete-time"])
-        self.statistics.append(stats)
-        if self.stats_callback is not None:
-            self.stats_callback(stats)
-        return stats
 
     def process_scan(self, points, labels=None, probs=None, point_valid=None):
         """Feed one scan; returns its statistics dict. Fully synchronous:
@@ -665,6 +745,3 @@ class SurfelSLAM:
                 lp._opt_future.result()
                 lp.integrate(self)
         return out
-
-    def trajectory(self) -> np.ndarray:
-        return np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))

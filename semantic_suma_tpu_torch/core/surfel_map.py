@@ -877,11 +877,22 @@ def creation_region_rows(hw: int, max_creates: int | None = None) -> int:
 def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
                     timestamp, data_cfg: DataConfig, map_cfg: MapConfig,
                     confidence_threshold, render_ts_threshold,
-                    semantic: bool = True):
+                    semantic: bool = True, group=None,
+                    create_mask: torch.Tensor | None = None,
+                    max_creates: int | None = None):
     """Per-scan map update + post-update model render on the active view,
     with a conditional view refresh. Returns (new_state, model_maps,
-    n_created, n_dropped). Single device. ``state`` is consumed: its arena
-    and pose table are updated in place."""
+    n_created, n_dropped). ``state`` is consumed: its arena and pose table
+    are updated in place.
+
+    Sharded (``group``, a ``parallel.distributed.Group``): ``state`` is this
+    rank's shard and ``create_mask`` gives each pixel's creation to one rank
+    (at most ``max_creates`` a rank). The ranks agree through five
+    collectives, entered by every rank on every call: a gather of the winner
+    depths with an argmin over the ranks for the global index-map winner
+    (the lowest rank on a tie), a sum-OR of the integrated flags, a
+    depth-min merge of the render candidates (two gathers) and a sum of the
+    ranks' room for their creations."""
     dev = pose.device
     pose = pose.to(torch.float32)
     pose_inv = lie.se3_inverse(pose)
@@ -889,7 +900,7 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
     hw = data_cfg.height * data_cfg.width
     bs, nb, k, f_blocks = _geometry(map_cfg)
     view_rows = k * bs
-    mc_eff = creation_region_rows(hw)
+    mc_eff = creation_region_rows(hw, max_creates)
     if f_blocks * bs < mc_eff:
         raise ValueError(
             f"fresh region ({f_blocks}x{bs} rows) must hold one scan's worst-"
@@ -926,10 +937,25 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
 
     pid_safe = torch.clamp_max(a.pid, hw - 1)
     closest = winner_all[pid_safe] == torch.arange(act.capacity, device=dev)
+    if group is not None:
+        # the local winner counts only where this rank also wins the
+        # depth argmin over the ranks
+        wd = torch.where(winner_all >= 0,
+                         proj.depth[winner_all.clamp_min(0)], torch.inf)
+        i_win = (torch.argmin(group.gather(wd), dim=0) == group.rank) \
+            & (winner_all >= 0)
+        closest = closest & i_win[pid_safe]
+        integrated = group.sum(integrated.to(torch.int32)) > 0
     upd = _update_finish(act, a, closest, ts, map_cfg, confidence_threshold)
 
     new_data, create = _make_new_surfels(frame, pose, ts, integrated,
                                          map_cfg, semantic)
+    create_all = create
+    if create_mask is not None:
+        # the rows of other ranks' pixels must not stay valid in the
+        # appended chunks
+        create = create & create_mask
+        new_data.i[:, _VALID] = create.to(torch.int32)
 
     # ---- creations: compact to the front (pixel order kept), append ----
     n_chunks = 4 if mc_eff % 4 == 0 else 1
@@ -986,6 +1012,15 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
                      g[:, _SEMPROB:_SEMPROB + 1]], dim=-1)
     img = torch.where(has[:, None], img, 0.0)
 
+    if group is not None:
+        # depth-min merge of the ranks' render candidates
+        d_all = group.gather(wdepth_render)                     # [D, HW]
+        img_all = group.gather(img)                             # [D, HW, 9]
+        win = torch.argmin(d_all, dim=0)
+        img = torch.take_along_dim(img_all, win[None, :, None], dim=0)[0]
+        wdepth_render = torch.amin(d_all, dim=0)
+        has = torch.isfinite(wdepth_render)
+
     # merge this scan's creations (they splat exactly at their pixel)
     maps = frame.maps
     vflat = maps.vertex.reshape(-1, 3)
@@ -995,7 +1030,13 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
         / torch.clamp_min(d_new, 1e-12)
     conf_new = torch.where(is_movable(maps.sem_label.reshape(-1)) & semantic,
                            map_cfg.log_prior - 0.5, map_cfg.log_prior)
-    new_rsel = create & a_fit & (cos_new > 0.01)
+    if group is not None and create_mask is not None:
+        # a created pixel renders iff its owner rank had room for it
+        owner_fit = group.sum(torch.where(create_mask, int(a_fit), 0)
+                              .to(torch.int32)) > 0
+        new_rsel = create_all & owner_fit & (cos_new > 0.01)
+    else:
+        new_rsel = create & a_fit & (cos_new > 0.01)
     if map_cfg.use_stability:
         new_rsel = new_rsel & (conf_new > confidence_threshold)
     take_new = new_rsel & (~has | (d_new < wdepth_render))

@@ -3,7 +3,8 @@ calibration and poses (counterpart of ``semantic_suma_tpu/io/kitti.py``).
 
 Host numpy (a segmenter's tensors aside); ``SurfelSLAM`` moves a scan to
 its device when it is dispatched. The reader parses the ``.bin`` files with
-numpy (the JAX package's optional native prefetch loader is not ported).
+the native prefetching loader (``io/native_io``, built with ``g++`` at first
+use; a failed build raises) or, with ``prefetch=False``, with numpy.
 Labels come from SemanticKITTI ``.label`` files, from a ``segmenter`` callable
 ``(points, remissions) -> (labels, probs)`` (tensors it returns are passed
 on as they are, on their device), or are absent (geometry only).
@@ -98,7 +99,7 @@ class KITTIReader:
     """
 
     def __init__(self, seq_dir: str, segmenter=None,
-                 use_gt_labels: bool = True):
+                 use_gt_labels: bool = True, prefetch: bool = True):
         self.seq_dir = seq_dir
         vel = os.path.join(seq_dir, "velodyne")
         if not os.path.isdir(vel):
@@ -122,6 +123,11 @@ class KITTIReader:
         calib_path = os.path.join(seq_dir, "calib.txt")
         if os.path.isfile(calib_path):
             self.calib = parse_calib(calib_path)
+
+        self._native = None
+        if prefetch:
+            from .native_io import NativeScanLoader
+            self._native = NativeScanLoader(self.files)
 
     def count(self) -> int:
         return len(self.files)
@@ -150,7 +156,10 @@ class KITTIReader:
         return None
 
     def read(self, idx: int) -> KittiScan:
-        points, rem = read_bin(self.files[idx])
+        if self._native is not None:
+            points, rem = self._native.read(idx)
+        else:
+            points, rem = read_bin(self.files[idx])
         n = points.shape[0]
         if self.label_files is not None:
             labels = read_label(self.label_files[idx])[:n]

@@ -122,7 +122,12 @@ class BatchNorm(nn.Module):
     in float32, with flax's *biased* variance ``max(mean(x²) - mean(x)², 0)``;
     the running statistics then move to ``0.99 * running + 0.01 * batch``
     with that same variance (``F.batch_norm`` would update them with the
-    unbiased one)."""
+    unbiased one).
+
+    With a ``group`` (set by ``parallel.sharding.shard_train_state``) the
+    batch is this rank's part of a global batch of equal parts: the means of
+    ``x`` and ``x²`` are averaged over the ranks (differentiably) before the
+    variance, so the statistics are the global batch's."""
 
     MOMENTUM = 0.99
 
@@ -132,12 +137,18 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            sq = (x * x).mean(dim=(0, 2, 3))
+            if self.group is not None and self.group.size > 1:
+                both = self.group.sum_grad(torch.cat([mean, sq])) \
+                    / self.group.size
+                mean, sq = both[:mean.shape[0]], both[mean.shape[0]:]
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

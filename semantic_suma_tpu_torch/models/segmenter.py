@@ -36,6 +36,7 @@ from ..config import DataConfig
 from ..device import resolve_device, to_host
 from ..ops.knn import labels_for_points
 from ..ops.projection import project_scan
+from ..parallel.distributed import Group
 from .labels import raw_to_train
 from .rangenet import Conv, ConvTranspose, RangeNet, make_input, small_rangenet
 
@@ -97,11 +98,17 @@ def create_train_state(model: RangeNet, seed: int = 0,
 
 
 def loss_fn(model: RangeNet, images, labels, valid, class_weights=None,
-            train: bool = True):
+            train: bool = True, group: Group | None = None):
     """Pixel-weighted cross entropy over ``[B, H, W, 5]`` images; ``labels``
     are train-class ids, ``valid`` masks unlabelled and invalid pixels.
     Returns ``(loss, accuracy)``, both 0-dim float32 tensors; in training
-    mode the forward also moves the batch-statistics buffers."""
+    mode the forward also moves the batch-statistics buffers.
+
+    With ``group`` (data-parallel ranks, each with its part of the batch)
+    the weight sum, the hits and the valid count are summed over the ranks,
+    so the sum over the ranks of each rank's loss is the loss of the global
+    batch and the accuracy is the global one."""
+    group = Group() if group is None else group
     model.train(train)
     logits = model(images)
     labels = labels.long()
@@ -110,30 +117,42 @@ def loss_fn(model: RangeNet, images, labels, valid, class_weights=None,
     w = valid.float()
     if class_weights is not None:
         w = w * class_weights[labels]
-    loss = -(ll * w).sum() / w.sum().clamp_min(1.0)
     hits = (logits.argmax(dim=-1) == labels) & valid
-    acc = hits.sum().float() / valid.sum().clamp_min(1).float()
+    sums = group.sum(torch.stack([w.sum(), hits.sum().float(),
+                                  valid.sum().float()]))
+    loss = -(ll * w).sum() / sums[0].clamp_min(1.0)
+    acc = sums[1] / sums[2].clamp_min(1.0)
     return loss, acc
 
 
-def make_train_step(schedule, class_weights=None):
+def make_train_step(schedule, class_weights=None, group: Group | None = None):
     """Returns ``train_step(state, images, labels, valid) -> (state,
     metrics)``: one AdamW step at the learning rate ``schedule(state.step)``
     (or the float ``schedule``). The module and its optimizer are updated in
     place; ``metrics`` holds the loss and accuracy as device tensors, so a
-    step reads nothing back to the host."""
+    step reads nothing back to the host.
+
+    With ``group`` each rank passes its part of the global batch (every rank
+    the same size) and the step computes the single-device step of the
+    global batch: :func:`loss_fn` over the global weight sum, the gradients
+    summed over the ranks before the update (batch norm takes the global
+    statistics once ``parallel.sharding.shard_train_state`` gave the network
+    the group)."""
+    group = Group() if group is None else group
 
     def train_step(state: TrainState, images, labels, valid):
         lr = schedule(state.step) if callable(schedule) else schedule
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for pg in state.optimizer.param_groups:
+            pg["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss, acc = loss_fn(state.model, images, labels, valid,
-                            class_weights, train=True)
+                            class_weights, train=True, group=group)
         loss.backward()
+        group.sum_in_place([p.grad for p in state.model.parameters()
+                            if p.grad is not None])
         state.optimizer.step()
         return (state._replace(step=state.step + 1),
-                {"loss": loss.detach(), "accuracy": acc})
+                {"loss": group.sum(loss.detach()), "accuracy": acc})
 
     return train_step
 

@@ -4,7 +4,10 @@ product per linearization, and the Gauss-Newton loop (counterpart of
 
 The JAX package runs the whole loop as one device ``while_loop``; here the
 loop is a Python loop with one host read per iteration (the stopping test,
-through ``device.to_host``).
+through ``device.to_host``). With a ``group`` (the sharded pipeline,
+``parallel/``), each rank linearizes its slice of the image rows and the
+products and statistics are summed over the ranks once per iteration, so
+every rank takes the same step and stops at the same iteration.
 Twist convention ``x = [v, omega]``, increment applied on the left:
 ``pose <- exp(x) @ pose``.
 """
@@ -224,14 +227,32 @@ def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, x, torch.nan)
 
 
+def _sum_over(group, ata: torch.Tensor, stats: IcpStats):
+    """``ata`` and the statistics summed over the ranks of ``group`` in one
+    all-reduce (the counts travel as float32, exact below 2^24)."""
+    vec = group.sum(torch.cat([ata.reshape(-1), torch.stack(
+        [s.to(torch.float32).reshape(()) for s in stats])]))
+    n = ata.numel()
+    summed = IcpStats(*(vec[n + j].to(s.dtype) if s.dtype.is_floating_point
+                        else torch.round(vec[n + j]).to(s.dtype)
+                        for j, s in enumerate(stats)))
+    return vec[:n].reshape(ata.shape), summed
+
+
 def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
                  model_cfg: DataConfig, semantic: bool = True,
-                 max_iterations: int | None = None) -> IcpResult:
+                 max_iterations: int | None = None,
+                 group=None) -> IcpResult:
     """Gauss-Newton alignment. Stops on a minimal step (||delta||_inf <
     delta), a vanishing gradient, a converged error change, or a non-finite
     step, checked after applying the increment; at most ``max_iterations``
     (default ``icp.max_iterations``) linearizations. ``gn_counts`` counts the
-    calls and their iterations for the run reports."""
+    calls and their iterations for the run reports.
+
+    ``group`` (a ``parallel.distributed.Group``): ``data`` holds this rank's
+    rows only; ``A^T A`` and the statistics are summed over the ranks before
+    the solve and the stopping test (the JAX package's ``psum`` over
+    ``axis``)."""
     max_iter = icp.max_iterations if max_iterations is None else max_iterations
     model_img = _pack_model_image(model)
     pose = t0.to(torch.float32)
@@ -246,6 +267,8 @@ def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
         rows, stats = build_rows(pose, data, model, icp, model_cfg, k,
                                  semantic, model_img=model_img)
         ata = rows.T @ rows
+        if group is not None:
+            ata, stats = _sum_over(group, ata, stats)
         jtj, jtf = ata[:6, :6], ata[:6, 6]
         delta = _solve_spd(jtj, -jtf)
         err = stats.error

@@ -1,6 +1,6 @@
-"""Accuracy ledger of the port: the odometry, noisy, loop, segmenter and
-segmenter-full rows of ``scripts/make_results.py``, run through the port's
-CLI in this process.
+"""Accuracy ledger of the port: the odometry, noisy, loop, segmenter,
+segmenter-full and sharded-8dev rows of ``scripts/make_results.py``, the
+first five run through the port's CLI in this process.
 
     python3 -m semantic_suma_tpu_torch.tools.make_results [--quick] [--cpu]
 
@@ -9,8 +9,13 @@ package's ledger (150 scans, the noisy row with 2 cm range noise, the
 140-scan loop row with the gates of ``configs/synthetic_loop.xml`` at 1 m
 steps, the segmenter rows with 30% of the boxes cars, labelled by the
 versioned networks ``weights/segmenter_synth_{mid,full}.pkl``, whose
-held-out mIoU the row reads from the weights' ``.json``); ``--quick`` takes
-60 and 80 scans, the loop row at 1.6 m steps, as the JAX tool does (which
+held-out mIoU the row reads from the weights' ``.json``; the networks are
+looked up in ``weights/`` of the working directory, the repository's root,
+or in ``--weights DIR``). The sharded-8dev row is the JAX tool's recipe: 8
+ranks of ``parallel.sharding.ShardedSurfelSLAM`` (started by
+``parallel.distributed.launch``) over 90 scans at 1.5 m steps, 32x450, a
+2^18-row arena, a 2^16-row view, 256 poses, loops off. ``--quick`` takes 60,
+80 and 30 scans, the loop row at 1.6 m steps, as the JAX tool does (which
 trains a small network for its quick segmenter row instead). It prints the
 RESULTS-format table and one JSON object with every row's numbers; it
 writes no file of the repo. Without ``--cpu`` the runs go to the GPU.
@@ -31,11 +36,20 @@ from pathlib import Path
 
 LOOP_XML = Path(__file__).resolve().parent.parent / "configs" \
     / "synthetic_loop.xml"
-WEIGHTS = Path(__file__).resolve().parent.parent.parent / "weights"
-# segmenter row -> its versioned network
-SEGMENTER_WEIGHTS = {"segmenter": WEIGHTS / "segmenter_synth_mid.pkl",
-                     "segmenter-full": WEIGHTS / "segmenter_synth_full.pkl"}
-ROWS = ("odometry", "noisy", "loop", *SEGMENTER_WEIGHTS)
+# segmenter row -> its versioned network, under weights/ of the working
+# directory (set_weights_dir names another)
+SEGMENTER_WEIGHTS = {}
+
+
+def set_weights_dir(path) -> None:
+    SEGMENTER_WEIGHTS.update(
+        {"segmenter": Path(path) / "segmenter_synth_mid.pkl",
+         "segmenter-full": Path(path) / "segmenter_synth_full.pkl"})
+
+
+set_weights_dir("weights")
+SHARDED_ROW = "sharded-8dev"
+ROWS = ("odometry", "noisy", "loop", *SEGMENTER_WEIGHTS, SHARDED_ROW)
 
 _PROCESSED = re.compile(
     r"processed (\d+) scans in ([\d.]+)s \(([\d.]+) scans/s\)"
@@ -113,8 +127,81 @@ def parse_run(stdout: str, stderr: str) -> dict:
     return out
 
 
+def _sharded_rank(rank: int, device, n: int) -> dict:
+    """One rank of the sharded-8dev row (``scripts/make_results.py``);
+    rank 0's numbers carry its evaluation and per-scan statistics."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from ..config import DataConfig, SumaConfig
+    from ..io.simulation import SimulationReader
+    from ..parallel import sharding as sh
+    from ..utils import metrics
+
+    d = DataConfig(width=450, height=32)
+    cfg = SumaConfig(data=d, model=d)
+    cfg = cfg.replace(map=replace(cfg.map, surfel_capacity=1 << 18,
+                                  active_capacity=1 << 16, max_poses=256))
+    reader = SimulationReader(cfg.data, n_scans=n, radius=18.0, step=1.5,
+                              device=device)
+    mesh = sh.make_mesh(8, device=device)
+    mesh.group.timing = True
+    slam = sh.ShardedSurfelSLAM(cfg, mesh, enable_loop_closure=False)
+    t0 = time.perf_counter()
+    for i in range(n):
+        s = reader.read(i)
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+    wall = time.perf_counter() - t0
+    from ..cli import _launch_counts
+    out = {"rank": rank, "scans": n, "wall_s": wall,
+           "scans_per_sec": n / max(wall, 1e-9),
+           "creations_dropped": slam.creations_dropped,
+           "map_count": slam.statistics[-1]["map-count"],
+           "launches": _launch_counts(),
+           "collectives": {"counts": dict(mesh.group.counts),
+                           "timed": mesh.group.summary()},
+           "peak_mib": (torch.cuda.max_memory_allocated(device) / 2**20
+                        if device.type == "cuda" else None)}
+    if rank == 0:
+        out.update(metrics.evaluate(np.asarray(reader.poses.cpu()),
+                                    slam.trajectory()))
+        out["statistics"] = slam.statistics
+    return out
+
+
+def run_sharded_row(cpu: bool = False, quick: bool = False) -> dict:
+    """The sharded-8dev row: 8 ranks on this host; rank 0's numbers, with
+    every rank's launches, collectives and peak memory under ``ranks``."""
+    import os
+
+    from ..device import resolve_device
+    from ..ops import cuda_build
+    from ..parallel.distributed import launch
+    n = 30 if quick else 90
+    device = resolve_device("cpu" if cpu else None)
+    if device.type == "cuda":
+        cuda_build.build_all()
+    t0 = time.perf_counter()
+    ranks = launch(_sharded_rank, 8, (n,), cpu=cpu, timeout_s=600.0,
+                   threads=max(1, (os.cpu_count() or 1) // 8),
+                   build_dir=cuda_build.BUILD)
+    row = {k: v for k, v in ranks[0].items() if k not in
+           ("launches", "collectives", "peak_mib", "rank", "statistics")}
+    row.update(call_s=time.perf_counter() - t0, steady_scans_per_sec=None,
+               argv=["sharded-8dev", str(n)], stderr="",
+               ranks=[{k: r[k] for k in ("rank", "launches", "collectives",
+                                         "peak_mib", "scans_per_sec")}
+                      for r in ranks])
+    return row
+
+
 def run_row(name: str, cpu: bool = False, quick: bool = False) -> dict:
-    """One ledger row through ``cli.main`` in this process."""
+    """One ledger row through ``cli.main`` in this process (the sharded row
+    through its 8 ranks)."""
+    if name == SHARDED_ROW:
+        return run_sharded_row(cpu, quick)
     from ..cli import main
     with tempfile.TemporaryDirectory() as td:
         stats = os.path.join(td, "stats.jsonl") if name == "loop" else None
@@ -181,14 +268,19 @@ def main(argv=None) -> int:
                     help="60 / 80 scans instead of 150 / 140")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the default is the GPU)")
+    ap.add_argument("--weights", default="weights",
+                    help="directory of the versioned segmenter networks")
     args = ap.parse_args(argv)
+    set_weights_dir(args.weights)
     rows = {}
     for name in ROWS:
         rows[name] = run_row(name, cpu=args.cpu, quick=args.quick)
         print(f"[{name}] {' '.join(rows[name]['argv'])}: "
               f"{rows[name]['call_s']:.1f} s", file=sys.stderr)
     print(table(rows))
-    print(json.dumps({k: {f: v for f, v in r.items() if f != "stderr"}
+    from ..cli import jsonable
+    print(json.dumps({k: jsonable({f: v for f, v in r.items()
+                                   if f != "stderr"})
                       for k, r in rows.items()}, default=float))
     return 0
 

@@ -21,8 +21,12 @@ unpickles ``__loop__`` with :class:`_LoopUnpickler`, which maps that class
 to the port's own (same fields), allows builtins and numpy, and refuses
 anything else, so a JAX session resumes without importing JAX.
 
-The sharded archive (``save_checkpoint_sharded``) needs ``parallel/``,
-which is not ported.
+A sharded session (``parallel.sharding.ShardedSurfelSLAM``) goes into the
+JAX package's sharded layout: ``__ndev__``, every shard's MapState under
+``shard{d}/<path>``, the replicated pipeline arrays under ``repl/...``, the
+host and loop blobs, and shard d's spilled chunks as ``__spill{d}_f_<n>__``
+/ ``__spill{d}_i_<n>__``. Rank 0 gathers the shards and writes the archive;
+on load every rank reads its own shard.
 """
 
 from __future__ import annotations
@@ -149,6 +153,8 @@ def save_checkpoint(slam, path: str, compact_map: bool = True) -> None:
     from ..core import surfel_map as sm
 
     if not hasattr(slam, "state"):
+        if hasattr(slam, "mesh"):
+            return save_checkpoint_sharded(slam, path)
         raise ValueError(
             f"not a checkpointable SLAM session: {type(slam).__name__}")
     if slam._pending:
@@ -171,6 +177,104 @@ def save_checkpoint(slam, path: str, compact_map: bool = True) -> None:
                                dtype=np.uint8),
         __loop__=np.frombuffer(_loop_blob(slam), dtype=np.uint8),
         **spill_arrays, **arrays)
+
+
+def save_checkpoint_sharded(slam, path: str) -> None:
+    """Serialize a ``ShardedSurfelSLAM`` session. Every rank calls it (the
+    shards and the spilled chunks are gathered to every rank); rank 0
+    writes ``path``. The session must have no scan in flight."""
+    if slam._pending:
+        raise ValueError(f"{len(slam._pending)} scans in flight: call "
+                         "flush() before save_checkpoint")
+    group = slam.group
+    arrays = {"__ndev__": np.asarray(slam.ndev, np.int32)}
+    for k, v in _flatten_with_paths(slam.local).items():
+        every = group.gather(v)
+        if group.rank == 0:
+            for d in range(slam.ndev):
+                arrays[f"shard{d}/{k}"] = _to_numpy(every[d])
+    chunks = [(c.f, c.i) for c in slam.spill.chunks] if slam.spill else []
+    every_chunks = group.objects(chunks) if slam.spill is not None else []
+    if group.rank != 0:
+        return
+    for name in ("pose", "last_increment"):
+        arrays[f"repl/{name}"] = _to_numpy(getattr(slam, name))
+    for name in ("last_maps", "model_maps"):
+        for k, v in _flatten_with_paths(getattr(slam, name)).items():
+            arrays[f"repl/{name}/{k}"] = _to_numpy(v)
+    for d, shard_chunks in enumerate(every_chunks):
+        for n, (f, i) in enumerate(shard_chunks):
+            arrays[f"__spill{d}_f_{n}__"] = f
+            arrays[f"__spill{d}_i_{n}__"] = i
+    np.savez_compressed(
+        path,
+        __host__=np.frombuffer(json.dumps(_host_blob(slam)).encode(),
+                               dtype=np.uint8),
+        __loop__=np.frombuffer(_loop_blob(slam), dtype=np.uint8),
+        **arrays)
+
+
+def _load_leaves(data, prefix: str, template) -> dict:
+    leaves = {}
+    for key, leaf in _flatten_with_paths(template).items():
+        stored = data[prefix + key]
+        if stored.shape != tuple(leaf.shape):
+            raise ValueError(
+                f"checkpoint field {prefix}{key} has shape {stored.shape}, "
+                f"config expects {tuple(leaf.shape)} — use the same "
+                "capacities")
+        leaves[key] = torch.as_tensor(stored, dtype=leaf.dtype,
+                                      device=leaf.device)
+    return leaves
+
+
+def load_checkpoint_sharded(path: str, cfg, mesh, axis: str = "map",
+                            enable_loop_closure: Optional[bool] = None):
+    """Restore a session saved by ``save_checkpoint_sharded`` of either
+    package onto ``mesh`` (this rank reads its own shard); the shard count
+    and the capacities must match."""
+    from ..parallel.sharding import ShardedSurfelSLAM
+
+    data = np.load(path, allow_pickle=False)
+    slam = ShardedSurfelSLAM(cfg, mesh, axis=axis,
+                             enable_loop_closure=enable_loop_closure)
+    ndev = int(data["__ndev__"])
+    if ndev != slam.ndev:
+        raise ValueError(f"checkpoint has {ndev} shards, mesh has "
+                         f"{slam.ndev}")
+    d = mesh.rank
+    slam.local = _unflatten(slam.local,
+                            _load_leaves(data, f"shard{d}/", slam.local))
+    dev = slam.device
+    slam.pose = torch.as_tensor(data["repl/pose"], dtype=torch.float32,
+                                device=dev)
+    slam.last_increment = torch.as_tensor(data["repl/last_increment"],
+                                          dtype=torch.float32, device=dev)
+    for name in ("last_maps", "model_maps"):
+        t = getattr(slam, name)
+        setattr(slam, name,
+                _unflatten(t, _load_leaves(data, f"repl/{name}/", t)))
+
+    host = json.loads(bytes(data["__host__"]).decode())
+    slam.poses = [np.asarray(p, np.float32) for p in host["poses"]]
+    slam._dispatched = len(slam.poses)
+    slam.trajectory_distances = list(host["trajectory_distances"])
+    slam.track_loss_count = int(host.get("track_loss_count", 0))
+    slam.statistics = host["statistics"]
+    slam.frame_correction = np.asarray(
+        host.get("frame_correction", np.eye(4)), np.float32)
+    _restore_loop(slam, bytes(data["__loop__"]))
+    if slam.spill is not None:
+        from ..core.spill import SpillChunk
+        mgr = slam.spill
+        n = 0
+        while f"__spill{d}_f_{n}__" in data:
+            mgr.chunks.append(SpillChunk(data[f"__spill{d}_f_{n}__"],
+                                         data[f"__spill{d}_i_{n}__"]))
+            n += 1
+        if mgr.chunks:
+            mgr.on_rebase(AsyncFetch(slam.local.poses).wait())
+    return slam
 
 
 def load_checkpoint(path: str, cfg, enable_loop_closure: Optional[bool] = None,

@@ -18,8 +18,10 @@ configuration has it), 12 noise-free synthetic scans:
   WebGL page; ``--save-checkpoint`` writes an archive that ``--resume``
   continues (the port's and the JAX CLI's), from the scan after the last
   one saved; ``--cache-dir`` names the kernels' build directory;
-* ``--sharded``, whose module is not ported, ends the run with an error
-  naming that module, and without ``--cpu`` and without a GPU ``run``
+* ``--sharded 2`` (two gloo ranks on the CPU) prints the JAX CLI's lines
+  and evaluation keys, writes a checkpoint that ``--resume`` continues,
+  and exports the poses of ``ShardedSurfelSLAM`` driven directly on two
+  ranks, within 1e-6 m; without ``--cpu`` and without a GPU ``run``
   raises;
 * ``--segmenter-weights`` labels every scan with the network, on the
   synthetic world and on a KITTI directory with ``--no-gt-labels``.
@@ -27,6 +29,7 @@ configuration has it), 12 noise-free synthetic scans:
 import contextlib
 import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -69,8 +72,16 @@ def _records(path):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(tmp dir, port stdout, JAX stdout) of the same CLI run."""
-    tmp = tmp_path_factory.mktemp("cli")
+    """(tmp dir, port stdout, JAX stdout) of the same CLI run, made once a
+    run for every xdist worker (``tests/torch_shared.py``); the tests only
+    read the directory."""
+    import torch_shared
+    tmp, out, jout = torch_shared.once(tmp_path_factory, "cli-runs",
+                                       _both_clis)
+    return Path(tmp), out, jout
+
+
+def _both_clis(tmp):
     outs = []
     for tag, main in (("port", tcli.main), ("jax", jcli.main)):
         buf, err = io.StringIO(), io.StringIO()
@@ -83,7 +94,7 @@ def runs(tmp_path_factory):
             assert main(_args(tmp, tag, extra)) == 0
         outs.append(buf.getvalue())
         (tmp / f"{tag}.err").write_text(err.getvalue())
-    return tmp, outs[0], outs[1]
+    return str(tmp), outs[0], outs[1]
 
 
 def test_run_prints_the_jax_format(runs):
@@ -157,11 +168,11 @@ def test_stats_and_exports_have_the_jax_keys(runs):
         (tmp / "jax.ply").read_bytes().split(b"element vertex")[0]
 
 
-def test_eval_command_matches_run_eval(runs, capsys):
+def test_eval_command_matches_run_eval(runs, tmp_path, capsys):
     tmp, out, _ = runs
     from semantic_suma_tpu_torch.io.kitti import save_poses
     from semantic_suma_tpu_torch.io.simulation import circular_trajectory
-    gt = tmp / "gt.txt"
+    gt = tmp_path / "gt.txt"
     save_poses(str(gt), circular_trajectory(N, 18.0, step=1.0).numpy())
     assert tcli.main(["eval", "--gt", str(gt), "--est",
                       str(tmp / "port.txt")]) == 0
@@ -171,19 +182,105 @@ def test_eval_command_matches_run_eval(runs, capsys):
     assert res["num_segments"] == want["num_segments"]
 
 
-REFUSED = [
-    (["run", "--synthetic", "2", "--sharded", "2"], "parallel/sharding"),
-]
+SHARDED_N = 8
 
 
-@pytest.mark.parametrize("argv,module", REFUSED,
-                         ids=[a[0] + ":" + a[-2] for a, _ in REFUSED])
-def test_unported_flags_are_refused(argv, module, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(["--cpu", *argv])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert module in err and "not ported" in err
+def _sharded(tmp_path, *extra):
+    """``--cpu run --sharded 2 --synthetic 8`` at the small XML (loops on,
+    as the CLI's default configuration has them) through ``cli.main`` in
+    this process: (exit code, stdout, stderr)."""
+    cfg = tmp_path / "cfg.xml"
+    if not cfg.exists():
+        cfg.write_text(XML)
+    argv = ["--cpu", "run", "--config", str(cfg), "--surfel-capacity",
+            str(1 << 15), "--active-capacity", str(1 << 13), "--sharded",
+            "2", "--synthetic", str(SHARDED_N), *extra]
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = tcli.main(argv)
+    return rc, buf.getvalue(), err.getvalue()
+
+
+@pytest.fixture(scope="session")
+def sharded_run(tmp_path_factory):
+    """One ``_sharded`` run with the evaluation, the stats log and the
+    exported poses, shared by the tests below (and by the xdist workers of
+    a run): (its directory, exit code, stdout, stderr)."""
+    import torch_shared
+
+    def compute(d):
+        rc, out, err = _sharded(d, "--eval", "--eval-breakdown",
+                                "--stats-json", str(d / "s.jsonl"),
+                                "--export-poses", str(d / "est.txt"))
+        return str(d), rc, out, err
+    d, rc, out, err = torch_shared.once(tmp_path_factory, "cli-sharded",
+                                        compute)
+    return Path(d), rc, out, err
+
+
+def test_sharded_run_prints_the_jax_format(runs, sharded_run):
+    from semantic_suma_tpu_torch.tools.make_results import parse_run
+    tmp_path, rc, out, err = sharded_run
+    assert rc == 0, err
+    row = parse_run(out, err)
+    assert row["scans"] == SHARDED_N and row["creations_dropped"] == 0
+    assert _eval_json(out).keys() == _eval_json(runs[1]).keys()
+    assert row["ate_rmse_m"] < 0.05
+    recs = [r for r in _records(tmp_path / "s.jsonl") if r["event"] == "scan"]
+    assert len(recs) == SHARDED_N
+    assert "distributed: 2 ranks, backend gloo" not in out
+    ranks = json.loads(err[err.index("sharded ranks: ") + 15:]
+                       .splitlines()[0])
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert ranks[0]["collectives"]["counts"] == \
+        ranks[1]["collectives"]["counts"]
+
+
+def test_sharded_save_checkpoint_then_resume(tmp_path):
+    ckpt = str(tmp_path / "s.npz")
+    rc, _, err = _sharded(tmp_path, "--max-scans", "5", "--save-checkpoint",
+                          ckpt)
+    assert rc == 0 and f"checkpoint -> {ckpt}" in err, err
+    rc, out, err = _sharded(tmp_path, "--resume", ckpt, "--eval")
+    assert rc == 0, err
+    assert f"resumed sharded at scan 5 from {ckpt}" in err
+    assert f"processed {SHARDED_N - 5} scans in " in out
+    assert np.isfinite(_eval_json(out)["ate_rmse_m"])
+
+
+def test_sharded_poses_equal_a_direct_drive(sharded_run, tmp_path):
+    """The exported poses of the sharded CLI run equal ``ShardedSurfelSLAM``
+    driven directly on two ranks with the CLI's configuration, within the
+    pose file's nine digits."""
+    import argparse
+
+    import torch_ranks
+    from semantic_suma_tpu_torch.io.kitti import load_poses
+    from semantic_suma_tpu_torch.io.simulation import (SimulationReader,
+                                                       default_world)
+    from semantic_suma_tpu_torch.parallel.distributed import launch
+    run_dir, rc, _, err = sharded_run
+    assert rc == 0, err
+    est = run_dir / "est.txt"
+    cfg = tcli.build_config(argparse.Namespace(
+        config=str(run_dir / "cfg.xml"), max_scans=None, approach=None,
+        no_semantics=False, no_loop_closure=False,
+        surfel_capacity=1 << 15, active_capacity=1 << 13))
+    reader = SimulationReader(cfg.data, n_scans=SHARDED_N,
+                              world=default_world(seed=0), radius=18.0,
+                              step=1.0, device="cpu")
+    arrs = {"n": np.asarray(SHARDED_N)}
+    for i in range(SHARDED_N):
+        s = reader.read(i)
+        arrs.update({f"p{i}": s.points.numpy(), f"l{i}": s.labels.numpy(),
+                     f"q{i}": s.probs.numpy(), f"v{i}": s.valid.numpy()})
+    np.savez(tmp_path / "scans.npz", **arrs)
+    out = launch(torch_ranks.drive, 2,
+                 (cfg, str(tmp_path / "scans.npz"), SHARDED_N, True, None,
+                  True), cpu=True, threads=1, timeout_s=60,
+                 join_timeout_s=60)
+    np.testing.assert_allclose(load_poses(str(est)), np.stack(out[0]["poses"]),
+                               atol=1e-6)
 
 
 def _files(path):

@@ -1,6 +1,8 @@
 """The port stands alone: importing ``semantic_suma_tpu_torch`` and every one
 of its modules loads neither JAX (nor flax or optax) nor the JAX package, no
-source of the port (nor ``chip_smoke.py``) imports them, and a whole CLI run
+source of the port (nor ``chip_smoke.py``) imports them or names a path
+outside the package, a ``run --sharded 2`` works where neither can be
+imported (in the CLI's process and in its ranks), and a whole CLI run
 (spill, KITTI files, evaluation, the stats log and the PLY exports), a
 segmenter loaded from a versioned weight file, a training run with its
 plots, checkpoint and viewer, and a ``run --resume`` of an archive that the
@@ -265,4 +267,82 @@ def test_resume_of_a_jax_archive_needs_no_jax(tmp_path):
     assert "processed 3 scans in " in out.stdout
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "semantic_suma_tpu_torch.utils.checkpoint" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+# the modules of the readers and the sharded pipeline
+PARALLEL_MODULES = (
+    "semantic_suma_tpu_torch.io.native_io",
+    "semantic_suma_tpu_torch.io.robocar",
+    "semantic_suma_tpu_torch.parallel.distributed",
+    "semantic_suma_tpu_torch.parallel.sharding",
+    "semantic_suma_tpu_torch.parallel.multihost_smoke",
+)
+
+
+def test_sources_name_no_path_outside_the_package():
+    """No string of a port source is an absolute path, and no path built
+    from ``__file__`` climbs above the package's root (the native loader's
+    source is the package's own copy)."""
+    import re
+    assert set(PARALLEL_MODULES) <= set(_modules())
+    assert (PKG / "native" / "scan_loader.cpp").is_file()
+    bad = []
+    for path in sorted(PKG.rglob("*.py")):
+        text = path.read_text()
+        for node in ast.walk(ast.parse(text, str(path))):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and re.match(r"/[A-Za-z]", node.value):
+                bad.append(f"{path.name}: {node.value!r}")
+        depth = len(path.relative_to(PKG).parts)  # parents to leave PKG
+        for m in re.finditer(r"Path\(__file__\)\.resolve\(\)((?:\.parent)+)",
+                             text):
+            if m.group(1).count(".parent") > depth:
+                bad.append(f"{path.name}: {m.group(0)}")
+        if "dirname(__file__)" in text or "os.pardir" in text \
+                and path.name != "kitti.py":
+            bad.append(f"{path.name}: a path from __file__ or os.pardir")
+    assert bad == []
+
+
+def test_loader_source_is_the_jax_package_code():
+    """The port's ``native/scan_loader.cpp`` is the JAX package's source,
+    line for line outside its comments."""
+    def code(p):
+        return [line for line in p.read_text().splitlines()
+                if not line.lstrip().startswith("//")]
+    assert code(PKG / "native" / "scan_loader.cpp") == \
+        code(ROOT / "native" / "scan_loader.cpp")
+
+
+def test_sharded_run_loads_no_jax(tmp_path):
+    """``cli run --sharded 2`` in a fresh interpreter where ``import jax``
+    and ``import semantic_suma_tpu`` fail, in that process and in the ranks
+    it spawns (each finds the failing packages first on its path)."""
+    block = tmp_path / "block"
+    for name in ("jax", "jaxlib", "flax", "optax", "semantic_suma_tpu"):
+        (block / name).mkdir(parents=True)
+        (block / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is blocked')\n")
+    xml = tmp_path / "small.xml"
+    xml.write_text(
+        '<config><param name="data_width" type="integer">120</param>'
+        '<param name="data_height" type="integer">24</param>'
+        '<param name="model_width" type="integer">120</param>'
+        '<param name="model_height" type="integer">24</param></config>')
+    argv = ["--cpu", "run", "--config", str(xml), "--surfel-capacity",
+            str(1 << 15), "--active-capacity", str(1 << 13), "--sharded", "2",
+            "--synthetic", "3", "--eval"]
+    code = (
+        "import json, sys\n"
+        "from semantic_suma_tpu_torch import cli\n"
+        f"assert cli.main({argv!r}) == 0\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=f"{block}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "processed 3 scans in " in out.stdout
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "semantic_suma_tpu_torch.parallel.distributed" in loaded
     assert [m for m in loaded if _forbidden(m)] == []

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_shared
 from semantic_suma_tpu.config import (LoopClosureConfig as JLoop,
                                       MapConfig as JMap,
                                       PreprocessConfig as JPre,
@@ -61,9 +62,15 @@ def _numpy(tree):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     """The JAX trajectory, with the port stepped from each JAX state and
-    the port run freely beside it."""
+    the port run freely beside it: computed once a run, for every xdist
+    worker that runs a test of this file (``tests/torch_shared.py``)."""
+    return torch_shared.once(tmp_path_factory, "pipeline-run",
+                             lambda _: _run())
+
+
+def _run():
     jcfg, cfg = _configs()
     world = jsim.default_world(0, extent=45.0)
     gt = jsim.circular_trajectory(N_SCANS, radius=18.0, step=1.5)
