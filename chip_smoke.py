@@ -136,14 +136,30 @@ and the exit code is non-zero:
      8x64x900 as 2 ranks of 4 against one device's step of 8:
      ``[train-parity]``'s limits; the ms a step of each;
  27. ``[multihost]``: ``parallel.multihost_smoke`` as 2 processes on the
-     card: both ``MULTIHOST OK`` lines.
+     card: both ``MULTIHOST OK`` lines;
+ 28. ``[chunked]``: phase 5's cell and scans through ``process_scan_async``
+     with ``chunk_size=8`` at ``pipeline_depth`` 4 and 1, beside two
+     per-step runs (``chunk_size=1``, depth 4): the depth-1 run within
+     ``max(3 x floor, 1 mm)`` of the per-step poses and its last map count
+     within 0.5% (at depth 4 the near-capacity rule compacts the arena at
+     most drains, which moves the map: that run is held to the ATE limit and
+     its difference printed); every run's ATE <= 0.05 m, scans/s, host reads
+     and fetches a scan;
+ 29. ``[sharded-train-2d]``: phase 26's batch on 4 ranks as a 2 x 2 ``("data",
+     "model")`` grid (``make_2d_mesh``; the kernels of >= 128 output channels
+     split over ``model``) against the same one-device step:
+     ``[train-parity]``'s limits on the loss, the batch statistics and every
+     gathered gradient, the updated weights as far as the gradients explain;
+     ms a step, each rank's peak memory, bytes of parameters and moments
+     beside the replicated layout's, and the collectives of a step.
 Phase 10 runs the segmenter and segmenter-full rows as well (each within
 twice the JAX package's round-5 row, no dropped creation) and the
 sharded-8dev row (8 ranks on the card; twice the JAX row, which was taken
 on a virtual CPU mesh; its full arena drops creations in both packages,
 held within 1% of JAX's count). Phases 13 to 15 run right
-after phase 3, phase 22 after phase 11, phases 16 to 21 and 23 to 27 last.
-Each of phases 5, 8, 9, 10 to 12, 16, 17, 19 to 25 counts the kernels'
+after phase 3, phase 28 after phase 5, phase 22 after phase 11, phases 16
+to 21 and 23 to 27 last, with 29 after 26.
+Each of phases 5, 8, 9, 10 to 12, 16, 17, 19 to 25 and 28 counts the kernels'
 launches from zero just before its run and reads them just after (a
 sharded run's ranks start from zero in their own processes and send their
 counts back: the sum and each rank's are printed). It prints the card's name and power limit, one
@@ -748,6 +764,120 @@ def phase_main_path(dev, profile_scans: int = 0):
         raise AssertionError(f"ATE {ate} m > 0.05 m")
     if profile_scans:
         _device_profile(slam, scans[n:], dt / n_timed * 1e3)
+    return launches
+
+
+# [chunked]: scans a dispatch, and the dispatches in flight of the chunked
+# run and of the chunked run that is held equal to the per-step run
+CHUNK_SIZE, CHUNK_DEPTH, CHUNK_DEPTH_HELD = 8, 4, 1
+
+
+def _drive_async(slam, scans, n_warm):
+    """``process_scan_async`` over ``scans`` and ``flush``; returns the host
+    seconds from scan ``n_warm`` to the end of the flush (synchronized)."""
+    for i, s in enumerate(scans):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
+    slam.flush()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_chunked(dev):
+    """``[chunked]``: the main path's cell (the bench sizing, filtered, the
+    same 8 + 60 scans) through ``process_scan_async`` with ``chunk_size=8``
+    at ``pipeline_depth`` 4 (its launches counted from zero around it) and
+    1, beside two per-step runs of the same scans (``chunk_size=1``, depth
+    4), whose difference is the floor.
+
+    At depth 4 up to 39 scans are in flight when a chunk drains (4 chunks
+    pending and the rest of the one in drain), and the near-capacity rule
+    (the JAX package's: compact when the last fetched count plus that many
+    scans' worth of creations, ``(1 + lag) * H * W``, exceeds the arena)
+    compacts the 2^21-row arena at most drains. Compaction drops the dead
+    rows and resets the active view, which changes the map and the
+    trajectory: that run is held to the cell's ATE <= 0.05 m, both kernels
+    on the path and no dropped creation, and its difference from the
+    per-step run is printed. At depth 1 (at most 15 scans in flight) the
+    rule never fires, and the chunked run is held to the per-step one: the
+    largest position difference within ``max(3 x floor, 1 mm)``, the last
+    map count within 0.5%, no compaction, ATE <= 0.05 m. Prints scans/s,
+    host reads and fetches a scan of every run."""
+    from semantic_suma_tpu_torch.config import odometry_config
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    from semantic_suma_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = odometry_config()
+    n_warm, n_timed = 8, 60
+    n = n_warm + n_timed
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n, radius=18.0, step=1.5, device=dev)
+    gt_np = gt.cpu().numpy().astype(np.float64)
+    scans = [render_scan(world, gt[i], cfg.data) for i in range(n)]
+    torch.cuda.synchronize()
+    runs, ates = {}, {}
+    for name, chunk, depth in (
+            ("chunked", CHUNK_SIZE, CHUNK_DEPTH),
+            ("chunked, held", CHUNK_SIZE, CHUNK_DEPTH_HELD),
+            ("per-step", 1, CHUNK_DEPTH), ("per-step again", 1, CHUNK_DEPTH)):
+        slam = SurfelSLAM(cfg, pipeline_depth=depth, chunk_size=chunk,
+                          device=dev)
+        if name == "chunked":
+            _zero_launch_counts()
+        dt = _drive_async(slam, scans, n_warm)
+        if name == "chunked":
+            launches = _read_launch_counts()
+        runs[name] = slam
+        ates[name] = ate_rmse(gt_np, slam.trajectory())
+        fetches = slam.stopwatch.stats["fetch-wait"].count
+        print(f"[chunked] {name}: chunk_size {chunk}, pipeline_depth "
+              f"{depth}, {n} scans ({n_warm} warm-up + {n_timed} timed): "
+              f"{n_timed / dt:.2f} scans/s, {dt / n_timed * 1e3:.2f} ms/scan"
+              f" (host clock); host reads/scan {slam.syncs / n:.2f}, "
+              f"fetches/scan {fetches / n:.3f}, compactions "
+              f"{slam.map_version}, map surfels "
+              f"{slam.statistics[-1]['map-count']}, dropped creations "
+              f"{slam.creations_dropped}, aligned ATE {ates[name]:.5f} m")
+    est = {k: v.trajectory() for k, v in runs.items()}
+    count = {k: v.statistics[-1]["map-count"] for k, v in runs.items()}
+
+    def diff(a, b="per-step"):
+        return float(np.abs(est[a][:, :3, 3] - est[b][:, :3, 3]).max())
+
+    floor = diff("per-step again")
+    limit = max(3 * floor, 1e-3)
+    print(f"[chunked] largest position difference from the per-step run "
+          f"(floor, per step twice, {floor:.3e} m): held run (depth "
+          f"{CHUNK_DEPTH_HELD}) {diff('chunked, held'):.3e} m (limit "
+          f"{limit:.3e} m), last map count {count['chunked, held']} vs "
+          f"{count['per-step']}; depth {CHUNK_DEPTH} "
+          f"{diff('chunked'):.3e} m, map count {count['chunked']} after "
+          f"{runs['chunked'].map_version} compactions")
+    print(f"[chunked] launches: {launches}")
+    for name, slam in runs.items():
+        if not np.all(np.isfinite(est[name])):
+            raise AssertionError(f"chunked: {name}: non-finite poses")
+        if slam.creations_dropped:
+            raise AssertionError(f"chunked: {name}: creations dropped")
+        if not ates[name] <= 0.05:
+            raise AssertionError(f"chunked: {name}: ATE {ates[name]} m > "
+                                 "0.05 m")
+    held = runs["chunked, held"]
+    if not diff("chunked, held") <= limit:
+        raise AssertionError(f"chunked: poses {diff('chunked, held')} m "
+                             f"off, limit {limit}")
+    if abs(count["chunked, held"] - count["per-step"]) \
+            > 0.005 * count["per-step"] or held.map_version:
+        raise AssertionError(f"chunked: map counts {count}, "
+                             f"{held.map_version} compactions")
+    if launches["bilateral_filter"] != n or launches["zbuffer_cells"] < 2 * n:
+        raise AssertionError(f"chunked: kernels ran {launches} over {n} "
+                             "scans")
     return launches
 
 
@@ -2647,56 +2777,194 @@ def _sharded_train_rank(rank, device, path):
     return out
 
 
+def _one_device_step(dev, images, labels, valid, cw):
+    """One step of the float32 mid network from seed 0's weights on the
+    whole batch on one device: the loss, the gradients, the batch statistics
+    and the updated weights, then its ms a step."""
+    from semantic_suma_tpu_torch.convert import flax_variables_from_rangenet
+    from semantic_suma_tpu_torch.models.rangenet import mid_rangenet
+    from semantic_suma_tpu_torch.models.segmenter import (create_train_state,
+                                                          make_train_step)
+    schedule, state = create_train_state(mid_rangenet(dtype=torch.float32),
+                                         0, device=dev)
+    step = make_train_step(schedule, torch.as_tensor(cw, device=dev))
+    batch = [torch.as_tensor(a, device=dev) for a in (images, labels, valid)]
+    state, m = step(state, *batch)
+    out = {"loss": float(m["loss"]),
+           "grads": {n: p.grad.cpu() for n, p in
+                     state.model.named_parameters()},
+           "params": {n: p.detach().cpu() for n, p in
+                      state.model.named_parameters()},
+           "stats": _flat_leaves(flax_variables_from_rangenet(
+               state.model.state_dict())["batch_stats"])}
+    out["ms"] = _step_ms(step, state, batch)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(a, b) -> float:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _train_worst(ranks, one) -> dict:
+    """The largest relative differences of the ranks' loss, batch
+    statistics and gradient leaves from the one-device step's."""
+    worst = {"loss": 0.0, "stats": 0.0, "grads": 0.0}
+    for r in ranks:
+        worst["loss"] = max(worst["loss"],
+                            abs(r["loss"] - one["loss"]) / abs(one["loss"]))
+        worst["stats"] = max(worst["stats"], max(
+            _rel(r["stats"][k], one["stats"][k]) for k in one["stats"]))
+        worst["grads"] = max(worst["grads"], max(
+            _rel(r["grads"][k], one["grads"][k]) for k in one["grads"]))
+    return worst
+
+
 def phase_sharded_train(dev, td):
     """``[sharded-train]``: one data-parallel step of the float32 mid
     network at 64x900, batch 8 as 2 ranks of 4 on the one card, against
     one single-device step on the same 8 images from the same weights:
     ``[train-parity]``'s limits on the loss, the batch statistics and every
     gradient leaf; the ms a step of each (CUDA events)."""
-    from semantic_suma_tpu_torch.convert import flax_variables_from_rangenet
-    from semantic_suma_tpu_torch.models.rangenet import mid_rangenet
-    from semantic_suma_tpu_torch.models.segmenter import (create_train_state,
-                                                          make_train_step)
     from semantic_suma_tpu_torch.parallel.distributed import launch
     images, labels, valid, cw = _train_batch()
     path = f"{td}/train_batch.npz"
     np.savez(path, images=images, labels=labels, valid=valid, cw=cw)
-    schedule, state = create_train_state(mid_rangenet(dtype=torch.float32),
-                                         0, device=dev)
-    step = make_train_step(schedule, torch.as_tensor(cw, device=dev))
-    batch = [torch.as_tensor(a, device=dev) for a in (images, labels, valid)]
-    state, m = step(state, *batch)
-    grads = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
-    stats = _flat_leaves(flax_variables_from_rangenet(
-        state.model.state_dict())["batch_stats"])
-    loss = float(m["loss"])
-    single_ms = _step_ms(step, state, batch)
-    del state, step, batch
-    torch.cuda.empty_cache()
+    one = _one_device_step(dev, images, labels, valid, cw)
     ranks = launch(_sharded_train_rank, 2, (path,), timeout_s=600,
                    join_timeout_s=900)
-
-    def rel(a, b):
-        a, b = torch.as_tensor(a), torch.as_tensor(b)
-        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-
-    worst = {"loss": 0.0, "stats": 0.0, "grads": 0.0}
-    for r in ranks:
-        worst["loss"] = max(worst["loss"], abs(r["loss"] - loss) / abs(loss))
-        worst["stats"] = max(worst["stats"], max(
-            rel(r["stats"][k], stats[k]) for k in stats))
-        worst["grads"] = max(worst["grads"], max(
-            rel(r["grads"][k], grads[k]) for k in grads))
+    worst = _train_worst(ranks, one)
     print(f"[sharded-train] mid_rangenet float32 at 8x64x900: 2 ranks of 4 "
-          f"vs one device of 8, loss {ranks[0]['loss']:.6f} / {loss:.6f} "
-          f"(relative {worst['loss']:.2e}, limit 1e-5), batch statistics "
-          f"{worst['stats']:.2e} (limit 1e-4), gradients {worst['grads']:.2e} "
-          f"of their scale (limit 5e-2) over {len(grads)} leaves; ms a step: "
-          f"data-parallel {ranks[0]['ms']:.2f} / {ranks[1]['ms']:.2f} (2 "
-          f"ranks sharing the card, gloo), one device {single_ms:.2f}")
+          f"vs one device of 8, loss {ranks[0]['loss']:.6f} / "
+          f"{one['loss']:.6f} (relative {worst['loss']:.2e}, limit 1e-5), "
+          f"batch statistics {worst['stats']:.2e} (limit 1e-4), gradients "
+          f"{worst['grads']:.2e} of their scale (limit 5e-2) over "
+          f"{len(one['grads'])} leaves; ms a step: data-parallel "
+          f"{ranks[0]['ms']:.2f} / {ranks[1]['ms']:.2f} (2 ranks sharing the "
+          f"card, gloo), one device {one['ms']:.2f}")
     if not (worst["loss"] <= 1e-5 and worst["stats"] <= 1e-4
             and worst["grads"] <= 5e-2):
         raise AssertionError(f"sharded train step: {worst}")
+    return path, one
+
+
+def _sharded_train_2d_rank(rank, device, path):
+    """One rank of ``[sharded-train-2d]`` on the 2 x 2 ``("data",
+    "model")`` mesh: the step of the f32 mid network on its data row's 4 of
+    the 8 images with the widest kernels split over ``model``, gathered back
+    (``unshard_train_state``): loss, gradients, batch statistics, updated
+    weights; its bytes of parameters and moments beside the replicated
+    layout's, and its collectives in the step (CUDA events). Then the ms a
+    step of a fresh state and the rank's peak memory."""
+    from semantic_suma_tpu_torch.convert import flax_variables_from_rangenet
+    from semantic_suma_tpu_torch.models.rangenet import mid_rangenet
+    from semantic_suma_tpu_torch.models.segmenter import create_train_state
+    from semantic_suma_tpu_torch.parallel import sharding as sh
+    z = np.load(path)
+    mesh = sh.make_2d_mesh(2, 2, device=device)
+    data, model = mesh.axes["data"], mesh.axes["model"]
+    part = slice(4 * data.rank, 4 * data.rank + 4)
+    batch = [torch.as_tensor(z[k][part], device=device)
+             for k in ("images", "labels", "valid")]
+    cw = torch.as_tensor(z["cw"], device=device)
+
+    def fresh():
+        schedule, state = create_train_state(
+            mid_rangenet(dtype=torch.float32), 0, device=device)
+        return (sh.shard_train_state(state, mesh),
+                sh.make_sharded_train_step(schedule, mesh, cw))
+
+    torch.cuda.reset_peak_memory_stats(device)
+    replicated = 4 * sum(p.numel() for p in mid_rangenet().parameters())
+    state, step = fresh()
+    for g in (data, model):
+        g.counts = dict.fromkeys(g.counts, 0)
+        g.timing = True
+    state, m = step(state, *batch)
+    out = {"place": (data.rank, model.rank), "loss": float(m["loss"]),
+           "collectives": {"data": data.summary(), "model": model.summary()},
+           "split": len(sh.model_axis_layers(mid_rangenet())),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in state.model.parameters()),
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for st in state.optimizer.state.values()
+                               for k, t in st.items()
+                               if k in ("exp_avg", "exp_avg_sq")),
+           "replicated_bytes": replicated}
+    for g in (data, model):
+        g.timing = False
+    state = sh.unshard_train_state(state, mesh)
+    out.update(grads={n: p.grad.cpu() for n, p in
+                      state.model.named_parameters()},
+               params={n: p.detach().cpu() for n, p in
+                       state.model.named_parameters()},
+               stats=_flat_leaves(flax_variables_from_rangenet(
+                   state.model.state_dict())["batch_stats"]))
+    del state, step
+    state, step = fresh()
+    out["ms"] = _step_ms(step, state, batch)
+    out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    return out
+
+
+def phase_sharded_train_2d(dev, path, one):
+    """``[sharded-train-2d]``: the ``[sharded-train]`` batch (8 images at
+    64x900, f32 mid network, seed 0's weights) on 4 ranks as a 2 x 2 grid
+    (``make_2d_mesh(2, 2)``: each data row 4 images, the kernels of >= 128
+    output channels split over the model axis) over gloo on the one card,
+    against the one-device step of the 8 images: ``[train-parity]``'s
+    limits on the loss, the batch statistics and every gathered gradient
+    leaf; the updated weights differ by no more than the two steps'
+    gradients give (AdamW's first step moves a weight by lr * g / (|g| +
+    eps)), within 4 float32 ulps of the weight + 1e-8. Prints ms a step,
+    each rank's peak memory, bytes of parameters and moments beside the
+    replicated layout's, and the collectives of a step with their ms."""
+    from semantic_suma_tpu_torch.parallel.distributed import launch
+    ranks = launch(_sharded_train_2d_rank, 4, (path,), timeout_s=600,
+                   join_timeout_s=900)
+    worst = _train_worst(ranks, one)
+    lr, eps = 1e-3, 1e-8   # create_train_state's defaults
+
+    def update(g):  # AdamW's first step, per unit of learning rate
+        g = g.double()
+        return g / (g.abs() + eps)
+
+    update_err = 0.0
+    for r in ranks:
+        for k, want in one["params"].items():
+            d = r["params"][k].double() - want.double()
+            explained = -lr * (update(r["grads"][k])
+                               - update(one["grads"][k]))
+            ulps = torch.as_tensor(np.spacing(want.abs().numpy()))
+            update_err = max(update_err, float(
+                ((d - explained).abs() / (4 * ulps + 1e-8)).max()))
+    print(f"[sharded-train-2d] mid_rangenet float32 at 8x64x900 on a 2 x 2 "
+          f"(data x model) grid of gloo ranks vs one device of 8: loss "
+          f"{ranks[0]['loss']:.6f} / {one['loss']:.6f} (relative "
+          f"{worst['loss']:.2e}, limit 1e-5), batch statistics "
+          f"{worst['stats']:.2e} (limit 1e-4), gradients "
+          f"{worst['grads']:.2e} of their scale (limit 5e-2) over "
+          f"{len(one['grads'])} leaves, updated weights beyond what the "
+          f"gradients give {update_err:.3f} of the limit; "
+          f"{ranks[0]['split']} kernels split over model")
+    for r in ranks:
+        print(f"[sharded-train-2d] rank at {r['place']}: "
+              f"{r['ms']:.2f} ms a step, peak {r['peak_mib']:.0f} MiB, "
+              f"parameters {r['param_bytes'] / 2**20:.2f} MiB + moments "
+              f"{r['moment_bytes'] / 2**20:.2f} MiB (replicated "
+              f"{r['replicated_bytes'] / 2**20:.2f} + "
+              f"{2 * r['replicated_bytes'] / 2**20:.2f}); a step's "
+              f"collectives: " + ", ".join(
+                  f"{ax} {kind} {v['calls']} in {v['ms']:.1f} ms"
+                  for ax, c in r["collectives"].items()
+                  for kind, v in c.items() if v["calls"]))
+    if not (worst["loss"] <= 1e-5 and worst["stats"] <= 1e-4
+            and worst["grads"] <= 5e-2 and update_err <= 1.0):
+        raise AssertionError(f"2-D train step: {worst}, update {update_err}")
+    if not all(r["param_bytes"] < r["replicated_bytes"] for r in ranks):
+        raise AssertionError("2-D train step: a rank holds every weight")
 
 
 def phase_multihost(dev, td):
@@ -2760,6 +3028,7 @@ def main() -> int:
     timed("miou", phase_miou, dev)
     timed("parity", phase_parity, dev)
     paths = {"main": timed("main", phase_main_path, dev, args.profile_scans)}
+    paths["chunked"] = timed("chunked", phase_chunked, dev)
     timed("default", phase_default_path, dev)
     timed("posegraph", phase_posegraph, dev)
     paths["loop"], real = timed("loop", phase_loop, dev, floors,
@@ -2785,7 +3054,8 @@ def main() -> int:
     paths["sharded_nccl"] = timed("sharded-nccl", phase_sharded_nccl, dev)
     paths["sharded_checkpoint"] = timed(
         "sharded-checkpoint", phase_sharded_checkpoint, dev, td, full)
-    timed("sharded-train", phase_sharded_train, dev, td)
+    path, one = timed("sharded-train", phase_sharded_train, dev, td)
+    timed("sharded-train-2d", phase_sharded_train_2d, dev, path, one)
     timed("multihost", phase_multihost, dev, td)
     work.cleanup()
     # launches: every path counted from zero over its own run and read right

@@ -8,8 +8,10 @@ eagerly; the Gauss-Newton loop, the fallback, the view refresh and the
 creation append read a few scalars to the host (``device.to_host``, counted
 in ``StepInfo.syncs``) to choose their branch. ``SurfelSLAM`` drives the step
 and, when enabled, the loop-closure state machine and the host-RAM spill of
-the map arena (``core/spill``); chunked dispatch is not ported and is
-refused.
+the map arena (``core/spill``). With ``chunk_size=K`` and loop closure off,
+``process_scan_async`` runs K scans per dispatch (``odometry_chunk_fetch``)
+and reads their K packed result rows with one fetch; each step still makes
+its own host reads.
 """
 
 from __future__ import annotations
@@ -211,6 +213,75 @@ def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
                      block_count.to(torch.float32).reshape(())]))
 
 
+def odometry_step_fetch(state: SlamState, points, labels, probs, point_valid,
+                        conf_threshold, cfg: SumaConfig,
+                        timer: StageTimer | None = None):
+    """:func:`odometry_step` and the packing of its results: returns
+    ``(new_state, packed[50])``, so that the host loop reads one vector a
+    scan."""
+    new_state, info = odometry_step(state, points, labels, probs, point_valid,
+                                    conf_threshold, cfg, timer=timer)
+    return new_state, _pack_step_info(info, new_state.map.block_count)
+
+
+def _stack(values):
+    """Stack a list of like values (tensors, numbers or named tuples of
+    them) along a new leading axis."""
+    first = values[0]
+    if isinstance(first, tuple):
+        return type(first)(*(_stack(list(f)) for f in zip(*values)))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(values)
+    return torch.tensor(values)
+
+
+def odometry_run(state: SlamState, points, labels, probs, point_valid,
+                 conf_thresholds, cfg: SumaConfig):
+    """Process a stacked batch of scans ``[T, ...]``: :func:`odometry_step`
+    on each in turn. Returns ``(final state, StepInfo)`` with every field
+    stacked over T (numbers as host tensors). Host work between scans (loop
+    closure, spill paging, statistics) does not run inside a batch."""
+    infos = []
+    for i in range(points.shape[0]):
+        state, info = odometry_step(state, points[i], labels[i], probs[i],
+                                    point_valid[i], conf_thresholds[i], cfg)
+        infos.append(info)
+    return state, _stack(infos)
+
+
+def odometry_chunk_fetch(state: SlamState, points, labels, probs,
+                         point_valid, conf_thresholds, cfg: SumaConfig,
+                         timer: StageTimer | None = None):
+    """K scans (leading axis) in one dispatch -> ``(state, packed[K, 50])``:
+    each scan's packed results (:func:`odometry_step_fetch`) are written into
+    one device tensor, which the host loop reads with one fetch. The steps' own
+    host reads (``StepInfo.syncs``) still happen inside."""
+    k = points.shape[0]
+    infos = torch.empty((k, 50), dtype=torch.float32, device=points.device)
+    for i in range(k):
+        state, infos[i] = odometry_step_fetch(
+            state, points[i], labels[i], probs[i], point_valid[i],
+            conf_thresholds[i], cfg, timer=timer)
+    return state, infos
+
+
+def _pad_inputs(points, labels, probs, valid, n: int):
+    """One scan's arrays zero-padded to ``n`` points: a pad row has point 0,
+    label 0, probability 0 and ``valid`` False, so that the projection never
+    sees it."""
+    def pad(a):
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1)
+                                       + (0, n - a.shape[0]))
+    return pad(points), pad(labels), pad(probs), pad(valid)
+
+
+def _stack_padded(scans, n: int):
+    """Stack scans' ``(points, labels, probs, valid)`` along a new leading
+    axis, each padded to ``n`` points by :func:`_pad_inputs`."""
+    return tuple(torch.stack(col)
+                 for col in zip(*(_pad_inputs(*s, n) for s in scans)))
+
+
 class HostStepInfo(NamedTuple):
     """StepInfo with numpy leaves (free host reads) + extras from the packed
     fetch."""
@@ -271,6 +342,7 @@ class HostLoop:
         self.device = device
         self.pipeline_depth = max(0, pipeline_depth)
         self._pending: "deque" = deque()
+        self._drain_rest = 0  # rows of the chunk in drain after this one
         self._dispatched = 0
         self._spill_retry_blocks = 0
         # host-visible phases on the host clock
@@ -366,13 +438,16 @@ class HostLoop:
     # -- dispatch / drain split -------------------------------------------
     # ``_dispatch`` runs the step and starts the copy of its packed info
     # vector to the host; ``_drain_one`` completes the host bookkeeping of
-    # the oldest dispatch. ``process_scan`` is fully synchronous (the
-    # loop-closure state machine gets the result before the next scan);
-    # ``process_scan_async`` keeps up to ``pipeline_depth`` scans' host
+    # the oldest dispatch, one scan or the K scans of a chunk
+    # (``SurfelSLAM(chunk_size=K)``). ``process_scan`` is fully synchronous
+    # (the loop-closure state machine gets the result before the next scan);
+    # ``process_scan_async`` keeps up to ``pipeline_depth`` dispatches' host
     # bookkeeping outstanding.
 
-    def _dispatch(self, points, labels, probs, point_valid) -> None:
-        t_start = time.perf_counter()
+    def _prep_scan(self, points, labels, probs, point_valid):
+        """One scan's inputs as device tensors (defaults filled in) and its
+        confidence threshold, fixed at this dispatch count. Returns
+        ``(points, labels, probs, valid, conf_threshold)``."""
         dev = self.device
         points = torch.as_tensor(points, dtype=torch.float32, device=dev)
         n = points.shape[0]
@@ -385,23 +460,39 @@ class HostLoop:
                        else torch.as_tensor(point_valid, device=dev))
         ct = self._conf_at(self._dispatched)
         self._dispatched += 1
-        packed, step_syncs = self._step(points, labels, probs, point_valid,
-                                        ct)
-        self._pending.append((AsyncFetch(packed), t_start, step_syncs))
+        return points, labels, probs, point_valid, ct
+
+    def _dispatch(self, points, labels, probs, point_valid) -> None:
+        self._dispatch_prepped(self._prep_scan(points, labels, probs,
+                                               point_valid))
+
+    def _dispatch_prepped(self, prepped) -> None:
+        t_start = time.perf_counter()
+        packed, step_syncs = self._step(*prepped)
+        self._pending.append((AsyncFetch(packed), t_start, step_syncs, 1))
         self.stopwatch.record("dispatch", time.perf_counter() - t_start)
 
     def _inflight(self) -> int:
-        """Scans dispatched whose results the host has not processed yet
-        (excluding the one being drained)."""
-        return len(self._pending)
+        """Scans dispatched whose results the host has not processed yet,
+        excluding the one being drained: the pending dispatches' scans and
+        the scans of the chunk being drained that come after it (the device
+        ran them already)."""
+        return sum(e[3] for e in self._pending) + self._drain_rest
 
     def _drain_one(self) -> dict:
-        fetch, t_start, step_syncs = self._pending.popleft()
+        fetch, t_start, step_syncs, rows = self._pending.popleft()
         t_f = time.perf_counter()
-        vec = fetch.wait()   # the host loop's one blocking read per scan
+        vec = fetch.wait()   # the host loop's one blocking read a dispatch
         self.stopwatch.record("fetch-wait", time.perf_counter() - t_f)
         self.syncs += step_syncs + 1
-        return self._finish_host(vec, t_start)
+        if rows == 1:
+            return self._finish_host(vec, t_start)
+        stats = None
+        for r in range(rows):
+            self._drain_rest = rows - 1 - r
+            stats = self._finish_host(vec[r], t_start)
+        self._drain_rest = 0
+        return stats
 
     def _finish_host(self, vec: np.ndarray, t_start: float) -> dict:
         info = _unpack_step_info(vec)
@@ -509,21 +600,22 @@ class SurfelSLAM(HostLoop):
     """Host-side loop: owns the device state, the pose log, the statistics,
     the host-RAM spill of the arena (``cfg.map.spill_enabled``) and (when
     enabled) the loop-closure state machine. Runs on the card unless the
-    caller names another device. Chunked dispatch (``chunk_size > 1``) is
-    not ported and is refused."""
+    caller names another device. ``chunk_size=K`` batches K scans a
+    dispatch in ``process_scan_async`` when loop closure is off."""
 
     # the LoopCloser uses the one-fetch verification/search programs here
     supports_fused_verify = True
 
     def __init__(self, cfg: SumaConfig, enable_loop_closure: bool | None = None,
                  pipeline_depth: int = 4, chunk_size: int = 1, device=None):
-        if chunk_size > 1:
-            raise NotImplementedError(
-                "chunked dispatch is not ported yet: use chunk_size=1")
         dev = resolve_device(device)
         super().__init__(cfg, cfg.map, cfg.data.height * cfg.data.width, dev,
                          pipeline_depth, enable_loop_closure)
         self.state = init_state(cfg, self.device)
+        # scans a dispatch of process_scan_async (loop closure off), and the
+        # prepared scans waiting for their chunk
+        self.chunk_size = max(1, chunk_size)
+        self._chunk_buf: list = []
         # device time per stage of the step, when set
         self.timer: StageTimer | None = None
         self._verify_cache = None
@@ -546,10 +638,35 @@ class SurfelSLAM(HostLoop):
         self.state = self.state._replace(map=new_map)
 
     def _step(self, points, labels, probs, point_valid, conf_threshold):
-        self.state, info = odometry_step(self.state, points, labels, probs,
-                                         point_valid, conf_threshold,
-                                         self.cfg, timer=self.timer)
-        return _pack_step_info(info, self.state.map.block_count), info.syncs
+        reads0 = to_host.count
+        self.state, packed = odometry_step_fetch(
+            self.state, points, labels, probs, point_valid, conf_threshold,
+            self.cfg, timer=self.timer)
+        return packed, to_host.count - reads0
+
+    def _dispatch_chunk(self) -> None:
+        """Run the buffered scans as one chunk (:func:`odometry_chunk_fetch`,
+        stacked to the largest point count); a partial chunk (the end of a
+        sequence) goes out scan by scan."""
+        entries, self._chunk_buf = self._chunk_buf, []
+        if len(entries) < self.chunk_size:
+            for e in entries:
+                self._dispatch_prepped(e)
+            return
+        t_start = time.perf_counter()
+        nmax = max(e[0].shape[0] for e in entries)
+        pts, lab, prb, val = _stack_padded([e[:4] for e in entries], nmax)
+        reads0 = to_host.count
+        self.state, infos = odometry_chunk_fetch(
+            self.state, pts, lab, prb, val, [e[4] for e in entries],
+            self.cfg, timer=self.timer)
+        self._pending.append((AsyncFetch(infos), t_start,
+                              to_host.count - reads0, len(entries)))
+        self.stopwatch.record("dispatch", time.perf_counter() - t_start)
+
+    def _inflight(self) -> int:
+        """As ``HostLoop._inflight``, and the scans buffered for a chunk."""
+        return super()._inflight() + len(self._chunk_buf)
 
     # accessors the LoopCloser reads instead of unpacking SlamState
     @property
@@ -700,9 +817,24 @@ class SurfelSLAM(HostLoop):
         CARRIED ON DEVICE between dispatches, ``LoopCloser.dispatch_verify``),
         the graph optimization runs on a background thread with deferred
         integration, and the pipeline drains only for a candidate SEARCH and
-        for above-gate rebases. Call :meth:`flush` after the last scan."""
+        for above-gate rebases. Call :meth:`flush` after the last scan.
+
+        With ``chunk_size=K`` and loop closure off, scans are buffered and
+        dispatched K at a time (:func:`odometry_chunk_fetch`), and a drain
+        completes the K scans of the oldest chunk (returning the last one's
+        stats dict)."""
         if self._loop is not None and self._loop.needs_integration:
             self._loop.integrate(self)  # drains internally if it rebases
+        if self._loop is None and self.chunk_size > 1:
+            # odometry only: chunk_size scans a dispatch, drained K at a time
+            self._chunk_buf.append(self._prep_scan(points, labels, probs,
+                                                   point_valid))
+            if len(self._chunk_buf) >= self.chunk_size:
+                self._dispatch_chunk()
+            out = None
+            while len(self._pending) > self.pipeline_depth:
+                out = self._drain_one()
+            return out
         self._dispatch(points, labels, probs, point_valid)
         if self._loop is not None:
             if self._loop.chain_live and self._loop.pipelined_ok:
@@ -717,9 +849,11 @@ class SurfelSLAM(HostLoop):
         return None
 
     def flush(self):
-        """Drain all in-flight scans; then integrate any finished (or still
-        running: the call waits for it) background graph optimization.
-        Returns the last stats dict or None."""
+        """Dispatch the scans buffered for a chunk and drain all in-flight
+        scans; then integrate any finished (or still running: the call waits
+        for it) background graph optimization. Returns the last stats dict
+        or None."""
+        self._dispatch_chunk()
         out = None
         while self._pending:
             out = self._drain_one()

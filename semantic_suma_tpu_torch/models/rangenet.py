@@ -61,9 +61,19 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
                               generator=generator)
 
 
+def _column_parallel(group, x: torch.Tensor, conv) -> torch.Tensor:
+    """``conv(x)`` of a layer whose output channels the ranks of ``group``
+    split (``parallel.sharding.shard_train_state``): each rank convolves the
+    whole input with its slice of the weight, and the slices' outputs are
+    gathered along the channels, so every rank holds the whole activation.
+    The input's gradient is summed over the ranks."""
+    return group.gather_cat(conv(group.copy_in(x)), 1)
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv`` with ``padding="SAME"``; ``weight`` is
-    ``[out, in, kh, kw]``."""
+    ``[out, in, kh, kw]``. With a ``model_group`` the weight holds this
+    rank's slice of the output channels (:func:`_column_parallel`)."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride=(1, 1),
                  bias: bool = False, dtype=torch.bfloat16):
@@ -73,6 +83,7 @@ class Conv(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(cout, cin, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.model_group = None
 
     def reset_parameters(self, generator=None) -> None:
         kh, kw = self.kernel
@@ -83,25 +94,35 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (hl, hh), (wl, wh) = (_same_pads(x.shape[2 + a], self.kernel[a],
                                          self.stride[a]) for a in (0, 1))
-        x = x.to(self.dtype)
-        pad = (0, 0)
-        if hl == hh and wl == wh:
-            pad = (hl, wl)
-        else:
-            x = F.pad(x, (wl, wh, hl, hh))
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, pad)
+
+        def conv(x, b):
+            x = x.to(self.dtype)
+            pad = (0, 0)
+            if hl == hh and wl == wh:
+                pad = (hl, wl)
+            else:
+                x = F.pad(x, (wl, wh, hl, hh))
+            return F.conv2d(x, self.weight.to(self.dtype), b, self.stride,
+                            pad)
+
+        if self.model_group is None:
+            return conv(x, b)
+        y = _column_parallel(self.model_group, x, lambda x: conv(x, None))
+        return y if b is None else y + b[:, None, None]
 
 
 class ConvTranspose(nn.Module):
     """flax ``nn.ConvTranspose((1, 4), strides=(1, 2), padding="SAME")``,
     no bias. ``weight`` is ``[in, out, 1, 4]``, flipped along the width
-    against flax's ``[1, 4, in, out]`` kernel."""
+    against flax's ``[1, 4, in, out]`` kernel; with a ``model_group`` this
+    rank's slice of the output channels (:func:`_column_parallel`)."""
 
     def __init__(self, cin: int, cout: int, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(cin, cout, 1, 4))
+        self.model_group = None
 
     def reset_parameters(self, generator=None) -> None:
         # flax computes the fan-in of the [1, 4, in, out] kernel: 4 * in
@@ -109,8 +130,14 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax's SAME transpose pads the dilated input by (2, 2): padding 1
-        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                                  stride=(1, 2), padding=(0, 1))
+        def up(x):
+            return F.conv_transpose2d(x.to(self.dtype),
+                                      self.weight.to(self.dtype),
+                                      stride=(1, 2), padding=(0, 1))
+
+        if self.model_group is None:
+            return up(x)
+        return _column_parallel(self.model_group, x, up)
 
 
 class BatchNorm(nn.Module):

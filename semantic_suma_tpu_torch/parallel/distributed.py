@@ -34,7 +34,7 @@ import time
 import torch
 import torch.distributed as dist
 
-_state = {"device": None, "backend": None}
+_state = {"device": None, "backend": None, "timeout": None}
 
 
 def backend_rule(ranks_on_host: int, cpu: bool = False) -> str:
@@ -80,7 +80,8 @@ def initialize(coordinator: str = "localhost:12355",
     dist.init_process_group(
         chosen, init_method=_init_method(coordinator), world_size=n, rank=r,
         timeout=datetime.timedelta(seconds=timeout_s))
-    _state.update(device=device, backend=chosen)
+    _state.update(device=device, backend=chosen,
+                  timeout=datetime.timedelta(seconds=timeout_s))
     if r == 0:
         why = ("asked for" if backend is not None else
                "CPU ranks" if cpu else
@@ -107,16 +108,18 @@ def backend() -> str | None:
 class Group:
     """The collectives of one rank over a process group (``pg=None`` with
     ``size == 1``: no process group, every collective returns its input).
-    Each call adds one to ``counts[kind]``; with ``timing`` on, its span on
-    the current stream is recorded with CUDA events (host clock on the
-    CPU) and :meth:`summary` reports the ms."""
+    ``rank`` is this rank's place in the group and ``ranks`` the group's
+    members by their world rank. Each call adds one to ``counts[kind]``;
+    with ``timing`` on, its span on the current stream is recorded with CUDA
+    events (host clock on the CPU) and :meth:`summary` reports the ms."""
 
-    def __init__(self, pg=None, rank: int = 0, size: int = 1):
+    def __init__(self, pg=None, rank: int = 0, size: int = 1, ranks=None):
         if pg is None and size != 1:
             raise ValueError("a group of several ranks needs a process group")
         self.pg = pg
         self.rank = rank
         self.size = size
+        self.ranks = list(range(size)) if ranks is None else list(ranks)
         self.timing = False
         self.counts = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
         self._spans: list = []
@@ -128,6 +131,23 @@ class Group:
         if not is_initialized():
             return cls()
         return cls(dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+
+    @classmethod
+    def subgroups(cls, members) -> "Group":
+        """Create a process group for each list of world ranks in
+        ``members`` (collective over the world: every rank creates every
+        subgroup, in the same order) and return this rank's, the one that
+        holds it."""
+        mine = None
+        for ranks in members:
+            pg = dist.new_group(list(ranks), timeout=_state["timeout"])
+            if dist.get_rank() in ranks:
+                mine = cls(pg, list(ranks).index(dist.get_rank()), len(ranks),
+                           ranks)
+        if mine is None:
+            raise ValueError(f"rank {dist.get_rank()} is in no group of "
+                             f"{members}")
+        return mine
 
     def _run(self, kind: str, t: torch.Tensor, op):
         self.counts[kind] += 1
@@ -212,15 +232,31 @@ class Group:
         return out.to(dtype) if dtype == torch.bool else out
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank ``src``'s tensor on every rank (a new tensor)."""
+        """The tensor of the group's rank ``src`` on every rank (a new
+        tensor)."""
         if self.pg is None:
             return t
         t = t.contiguous().clone()
 
         def go():
-            dist.broadcast(t, src, group=self.pg)
+            dist.broadcast(t, self.ranks[src], group=self.pg)
             return t
         return self._run("broadcast", t, go)
+
+    def copy_in(self, t: torch.Tensor) -> torch.Tensor:
+        """Identity that autograd differentiates as a sum over the ranks:
+        the input of a layer whose output channels the ranks split, where
+        each rank's gradient holds its channels' part only."""
+        if self.pg is None:
+            return t
+        return _CopyIn.apply(t, self)
+
+    def gather_cat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather concatenated along ``dim`` (rank order); its backward
+        gives each rank its own slice of the gradient."""
+        if self.pg is None:
+            return t
+        return _GatherCat.apply(t, self, dim)
 
     def objects(self, obj) -> list:
         """All-gather of a picklable host object: one entry per rank."""
@@ -243,6 +279,34 @@ class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.group.sum(grad), None
+
+
+class _CopyIn(torch.autograd.Function):
+    """y = x; dL/dx = sum over the ranks of dL/dy."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.sum(grad), None
+
+
+class _GatherCat(torch.autograd.Function):
+    """y = the ranks' x concatenated along ``dim``; dL/dx = this rank's
+    slice of dL/dy (every rank's loss is the same function of y)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, t.shape[dim]
+        return torch.cat(group.gather(t).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.group.rank * ctx.n
+        return grad.narrow(ctx.dim, lo, ctx.n), None, None
 
 
 def _rank_entry(rank: int, nprocs: int, init: str, fn, args, cpu: bool,

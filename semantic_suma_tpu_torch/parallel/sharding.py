@@ -17,7 +17,9 @@ steps on its own part of the map and meets the other ranks in collectives:
 * **Segmenter**: data-parallel training over the ``data`` axis that
   computes the single-device function of the global batch: batch norm with
   the global batch's statistics, the loss over the global weight sum, the
-  gradients summed over the ranks.
+  gradients summed over the ranks. On a ``("data", "model")`` mesh
+  (:func:`make_2d_mesh`) the widest kernels' output channels are split over
+  ``model`` as well (column-parallel convolutions, ``models/rangenet``).
 
 **Lockstep.** A rank that enters a collective alone hangs the group, so every
 branch that has a collective behind it is taken on replicated values: the
@@ -54,12 +56,14 @@ from .distributed import Group
 
 @dataclass
 class Mesh:
-    """One rank's view of the mesh: its group, the axis name, and its
-    device."""
+    """One rank's view of the mesh: the group of all its ranks, the axis
+    names, its device, and for each axis the group of the ranks that share
+    this rank's place on every other axis."""
 
     group: Group
-    axis: str
+    axis_names: tuple
     device: torch.device
+    axes: dict
 
     @property
     def rank(self) -> int:
@@ -70,22 +74,49 @@ class Mesh:
         return self.group.size
 
 
+def _mesh_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if distributed.rank_device() is not None:
+        return distributed.rank_device()
+    return resolve_device(None)
+
+
+def _world(n: int) -> Group:
+    group = Group.world()
+    if n != group.size:
+        raise ValueError(f"a mesh of {n} devices needs that many ranks; the "
+                         f"group has {group.size}")
+    return group
+
+
 def make_mesh(n_devices: int | None = None, axis: str = "map",
               device=None) -> Mesh:
     """The mesh of the initialized process group (every rank, on the device
     ``distributed.initialize`` gave it), or of this process alone when no
     group is up (``device``: the card unless named)."""
-    group = Group.world()
-    if n_devices is not None and n_devices != group.size:
-        raise ValueError(f"a mesh of {n_devices} devices needs that many "
-                         f"ranks; the group has {group.size}")
-    if device is not None:
-        dev = torch.device(device)
-    elif distributed.rank_device() is not None:
-        dev = distributed.rank_device()
+    group = Group.world() if n_devices is None else _world(n_devices)
+    return Mesh(group, (axis,), _mesh_device(device), {axis: group})
+
+
+def make_2d_mesh(n_data: int, n_model: int, device=None) -> Mesh:
+    """The ``("data", "model")`` mesh of the initialized process group of
+    ``n_data * n_model`` ranks: rank r sits at ``(r // n_model, r %
+    n_model)``, the JAX package's row-major ``reshape(n_data, n_model)`` of
+    its devices. A rank's ``data`` group is its column (the ranks of its
+    model index), its ``model`` group its row. Every rank creates every
+    subgroup in the same order: all the columns, then all the rows."""
+    group = _world(n_data * n_model)
+    if group.pg is None:
+        axes = {"data": group, "model": group}
     else:
-        dev = resolve_device(None)
-    return Mesh(group, axis, dev)
+        n = n_data * n_model
+        axes = {"data": Group.subgroups(
+                    [list(range(c, n, n_model)) for c in range(n_model)]),
+                "model": Group.subgroups(
+                    [list(range(r * n_model, (r + 1) * n_model))
+                     for r in range(n_data)])}
+    return Mesh(group, ("data", "model"), _mesh_device(device), axes)
 
 
 def shard_map_config(cfg: SumaConfig, ndev: int):
@@ -406,26 +437,119 @@ class ShardedSurfelSLAM(HostLoop):
 
 
 # ---------------------------------------------------------------------------
-# data-parallel segmenter training
+# segmenter training: data-parallel, and column-parallel over "model"
 # ---------------------------------------------------------------------------
 
+# the JAX package's rule (``shard_train_state``): a 4-D kernel with at least
+# this many output channels is split along them over the "model" axis
+MODEL_MIN_CHANNELS = 128
+
+
+def _out_dim(layer) -> int:
+    """The output-channel dimension of a ``Conv`` weight (``[out, in, kh,
+    kw]``) or a ``ConvTranspose`` weight (``[in, out, 1, 4]``)."""
+    from ..models.rangenet import ConvTranspose
+    return 1 if isinstance(layer, ConvTranspose) else 0
+
+
+def model_axis_layers(model) -> list:
+    """``(name, layer)`` of each convolution of ``model`` whose weight the
+    "model" axis splits: 4-D, with at least ``MODEL_MIN_CHANNELS`` output
+    channels (its flax kernel's last dimension)."""
+    from ..models.rangenet import Conv, ConvTranspose
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, (Conv, ConvTranspose)) and m.weight.dim() == 4
+            and m.weight.shape[_out_dim(m)] >= MODEL_MIN_CHANNELS]
+
+
+def _swap_params(optimizer, swap: dict) -> None:
+    """Put ``swap[old] = (new, f)``'s ``new`` in the place of ``old`` in
+    ``optimizer``; its state tensors of ``old``'s shape (the AdamW moments)
+    go through ``f``."""
+    for pg in optimizer.param_groups:
+        pg["params"] = [swap[p][0] if p in swap else p for p in pg["params"]]
+    for old, (new, f) in swap.items():
+        st = optimizer.state.pop(old, None)
+        if st is not None:
+            optimizer.state[new] = {
+                k: f(v) if torch.is_tensor(v) and v.shape == old.shape else v
+                for k, v in st.items()}
+
+
 def shard_train_state(state, mesh: Mesh):
-    """Replicate a ``models.segmenter.TrainState`` over the ranks: rank 0's
+    """Lay a ``models.segmenter.TrainState`` out over the mesh: rank 0's
     weights and batch statistics are broadcast, and every batch norm of the
-    network reduces its statistics over the mesh's group from now on."""
+    network reduces its statistics over the ``data`` axis (the whole mesh on
+    a 1-D mesh) from now on. With a ``"model"`` axis, each layer of
+    :func:`model_axis_layers` keeps only this rank's slice of its output
+    channels, of its weight and of the weight's AdamW moments, and computes
+    column-parallel over the axis; everything else stays replicated. A width
+    that the axis does not divide raises ``ValueError``."""
     from ..models.rangenet import BatchNorm
     with torch.no_grad():
         for t in [*state.model.parameters(), *state.model.buffers()]:
             t.copy_(mesh.group.broadcast(t, 0))
     for m in state.model.modules():
         if isinstance(m, BatchNorm):
-            m.group = mesh.group
+            m.group = mesh.axes.get("data", mesh.group)
+    group = mesh.axes.get("model")
+    if group is None:
+        return state
+    layers = model_axis_layers(state.model)
+    for name, m in layers:
+        c = m.weight.shape[_out_dim(m)]
+        if c % group.size:
+            raise ValueError(f"{name}: {c} output channels do not divide "
+                             f"over {group.size} model ranks")
+    swap = {}
+    for _, m in layers:
+        d = _out_dim(m)
+        k = m.weight.shape[d] // group.size
+
+        def cut(t, d=d, k=k):
+            return t.detach().narrow(d, group.rank * k, k).clone()
+
+        part = torch.nn.Parameter(cut(m.weight))
+        swap[m.weight] = (part, cut)
+        m.weight, m.model_group = part, group
+    _swap_params(state.optimizer, swap)
+    return state
+
+
+def unshard_train_state(state, mesh: Mesh):
+    """The single-device layout of a state that :func:`shard_train_state`
+    laid out: each split weight, its gradient and its AdamW moments gathered
+    over the ``"model"`` axis, and no group left in the network. Every rank
+    gets the whole arrays (``flax_variables_from_rangenet``,
+    ``Segmenter.save`` and the checkpoints read them as they are)."""
+    from ..models.rangenet import BatchNorm
+    group = mesh.axes.get("model")
+    swap = {}
+    for m in state.model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = None
+        if getattr(m, "model_group", None) is None:
+            continue
+        d = _out_dim(m)
+
+        def whole(t, d=d):
+            return torch.cat(group.gather(t.detach()).unbind(0), dim=d)
+
+        full = torch.nn.Parameter(whole(m.weight))
+        if m.weight.grad is not None:
+            full.grad = whole(m.weight.grad)
+        swap[m.weight] = (full, whole)
+        m.weight, m.model_group = full, None
+    _swap_params(state.optimizer, swap)
     return state
 
 
 def make_sharded_train_step(schedule, mesh: Mesh, class_weights=None):
-    """The data-parallel step on the ``data`` axis: ``models.segmenter.
-    make_train_step`` over the mesh's group (see there), after
-    :func:`shard_train_state`."""
+    """The sharded step: ``models.segmenter.make_train_step`` over the
+    ``data`` axis (the whole mesh on a 1-D mesh; see there), after
+    :func:`shard_train_state`. On a ``("data", "model")`` mesh the ranks of
+    a model row hold the same images and the same whole activations, so
+    batch norm, the loss and the gradient sums run over ``data`` only."""
     from ..models.segmenter import make_train_step
-    return make_train_step(schedule, class_weights, group=mesh.group)
+    return make_train_step(schedule, class_weights,
+                           group=mesh.axes.get("data", mesh.group))

@@ -157,8 +157,8 @@ def save_checkpoint(slam, path: str, compact_map: bool = True) -> None:
             return save_checkpoint_sharded(slam, path)
         raise ValueError(
             f"not a checkpointable SLAM session: {type(slam).__name__}")
-    if slam._pending:
-        raise ValueError(f"{len(slam._pending)} scans in flight: call "
+    if slam._inflight():
+        raise ValueError(f"{slam._inflight()} scans in flight: call "
                          "flush() before save_checkpoint")
     state = slam.state
     if compact_map:
@@ -183,8 +183,8 @@ def save_checkpoint_sharded(slam, path: str) -> None:
     """Serialize a ``ShardedSurfelSLAM`` session. Every rank calls it (the
     shards and the spilled chunks are gathered to every rank); rank 0
     writes ``path``. The session must have no scan in flight."""
-    if slam._pending:
-        raise ValueError(f"{len(slam._pending)} scans in flight: call "
+    if slam._inflight():
+        raise ValueError(f"{slam._inflight()} scans in flight: call "
                          "flush() before save_checkpoint")
     group = slam.group
     arrays = {"__ndev__": np.asarray(slam.ndev, np.int32)}

@@ -346,3 +346,106 @@ def test_sharded_run_loads_no_jax(tmp_path):
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "semantic_suma_tpu_torch.parallel.distributed" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+# JAX names that the port's module of the same path does not keep under the
+# same name: "module:name" -> the port's counterpart ("module:name", or a
+# source file of ``semantic_suma_tpu_torch``), or "none: " and why
+RENAMED = {
+    "cli:jax_tree_to_np": "none: the port holds no JAX trees",
+    "core/posegraph:_so3_left_jacobian_inv_approx":
+        "none: no caller in the JAX package",
+    "core/surfel_map:PackedSurfels.put": "none: no caller in the JAX package",
+    "core/surfel_map:PackedSurfels.take": "none: no caller in the JAX package",
+    "core/surfel_map:_zeros_data": "none: no caller in the JAX package",
+    # split in two, the second half being _update_finish
+    "core/surfel_map:_update_view": "core/surfel_map:_update_stage_a",
+    "io/native_io:_build": "io/native_io:build",
+    "models/rangenet:knn_clean": "ops/knn:knn_clean",
+    "models/rangenet:knn_clean_image": "ops/knn:knn_clean_image",
+    "models/rangenet:labels_for_points": "ops/knn:labels_for_points",
+    "models/segmenter:Segmenter._infer_impl":
+        "models/segmenter:Segmenter.__call__",
+    "ops/pallas_kernels:bilateral_filter_pallas":
+        "ops/bilateral:bilateral_filter",
+    "ops/pallas_kernels:_bilateral_kernel": "csrc/bilateral.cu",
+    "parallel/sharding:ShardedSurfelSLAM._local_shard":
+        "none: a rank holds one shard, ShardedSurfelSLAM.local",
+    "parallel/sharding:ShardedSurfelSLAM._my_shards":
+        "none: a rank holds one shard, ShardedSurfelSLAM.local",
+    "parallel/sharding:ShardedSurfelSLAM._write_shard":
+        "none: a rank holds one shard, ShardedSurfelSLAM.local",
+    "parallel/sharding:_stack_tree":
+        "none: a rank holds its own state, stacked over no device axis",
+    "parallel/sharding:_local": "none: no shard_map device axis to strip",
+    "parallel/sharding:_delocal": "none: no shard_map device axis to add",
+    "parallel/sharding:_maps_struct": "none: no shard_map output spec",
+    "parallel/sharding:make_sharded_step": "parallel/sharding:sharded_step",
+    "parallel/sharding:make_sharded_compact": "core/surfel_map:compact",
+    "parallel/sharding:make_sharded_update_poses":
+        "core/surfel_map:update_poses",
+    "parallel/sharding:make_sharded_render": "parallel/sharding:sharded_render",
+    # a rank builds its old view alone (ShardedSurfelSLAM.render_old_maps)
+    "parallel/sharding:make_sharded_old_view":
+        "core/surfel_map:refresh_active",
+    "parallel/sharding:make_sharded_view_render":
+        "parallel/sharding:sharded_view_render",
+    "utils/timing:Stopwatch._record": "utils/timing:Stopwatch.record",
+    "utils/viz:_plt": "none: the card's hosts have no matplotlib; the port "
+                      "draws its PNGs with numpy",
+}
+
+
+def _defined(package: Path):
+    """``{module path: names}`` of a package's top-level functions and
+    classes and its classes' methods (``Class.method``; a class also has
+    the methods of its bases that the package defines, and a module's
+    ``forward`` stands for flax's ``__call__``)."""
+    trees = {p.relative_to(package).with_suffix("").as_posix():
+             ast.parse(p.read_text(), str(p))
+             for p in sorted(package.rglob("*.py"))}
+    classes = {}
+    for tree in trees.values():
+        for node in tree.body:
+            if isinstance(node, ast.ClassDef):
+                classes[node.name] = (
+                    {b.name for b in node.body
+                     if isinstance(b, (ast.FunctionDef,
+                                       ast.AsyncFunctionDef))},
+                    [b.id for b in node.bases if isinstance(b, ast.Name)])
+
+    def methods(name):
+        own, bases = classes.get(name, (set(), []))
+        out = set(own) | ({"__call__"} if "forward" in own else set())
+        for b in bases:
+            out |= methods(b)
+        return out
+
+    out = {}
+    for mod, tree in trees.items():
+        names = set()
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                names.add(node.name)
+            elif isinstance(node, ast.ClassDef):
+                names.add(node.name)
+                names |= {f"{node.name}.{m}" for m in methods(node.name)}
+        out[mod] = names
+    return out
+
+
+def test_every_jax_name_has_a_counterpart_in_the_port():
+    jax_names = _defined(ROOT / "semantic_suma_tpu")
+    port = _defined(PKG)
+    missing = sorted(f"{mod}:{n}" for mod, names in jax_names.items()
+                     for n in names if n not in port.get(mod, ()))
+    assert sorted(set(missing) - set(RENAMED)) == []   # none truly missing
+    assert sorted(set(RENAMED) - set(missing)) == []   # no stale row
+    for where in RENAMED.values():
+        if where.startswith("none: "):
+            continue
+        if ":" not in where:
+            assert (PKG / where).is_file(), where
+            continue
+        mod, name = where.split(":")
+        assert name in port.get(mod, ()), where

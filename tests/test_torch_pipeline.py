@@ -14,8 +14,8 @@ bilateral filter on.
   does from itself when its input moves by one ulp (a Gauss-Newton loop that
   stops at its iteration cap amplifies rounding), so the free run is held
   only on the final map count, within 0.5%.
-* ``SurfelSLAM`` builds a spill manager when asked, and refuses chunked
-  dispatch and a missing GPU.
+* ``SurfelSLAM`` builds a spill manager, a loop closer and a chunking
+  session when asked, and refuses a missing GPU.
 """
 import dataclasses
 
@@ -203,14 +203,17 @@ def test_map_maintenance_matches_jax(run):
 
 
 def test_surfel_slam_refuses_unported_paths():
+    """No path of ``SurfelSLAM`` is refused any more: asked for, it builds a
+    spill manager, a loop closer and a chunking session."""
     _, cfg = _configs()
     # spill is ported: asked for, ``SurfelSLAM`` builds a spill manager
     spilling = tp.SurfelSLAM(cfg.replace(map=dataclasses.replace(
         cfg.map, spill_enabled=True)), device="cpu")
     assert spilling.spill is not None and not spilling.spill.chunks
     assert tp.SurfelSLAM(cfg, device="cpu").spill is None
-    with pytest.raises(NotImplementedError):
-        tp.SurfelSLAM(cfg, chunk_size=4, device="cpu")
+    # chunked dispatch is ported: asked for, ``SurfelSLAM`` chunks
+    chunking = tp.SurfelSLAM(cfg, chunk_size=4, device="cpu")
+    assert chunking.chunk_size == 4 and chunking._chunk_buf == []
     # loop closure is ported: asked for either way, ``SurfelSLAM`` builds one
     for slam in (tp.SurfelSLAM(dataclasses.replace(
                      cfg, loop=LoopClosureConfig()), device="cpu"),

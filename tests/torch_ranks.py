@@ -255,6 +255,69 @@ def train_step(rank, device, batch_file, sides_file=None):
                         for k, b_ in state.model.named_buffers()}}
 
 
+def model_axis_step(rank, device, batch_file, sides_file):
+    """One f32 step of ``small_rangenet`` on a 2 x 2 ``("data", "model")``
+    mesh (``make_2d_mesh``): this rank's data row's half of the global
+    batch, the widest kernels split over the model axis. Returns the rank's
+    place and groups, the split layers with this rank's weight and moment
+    shapes, and, gathered back (``unshard_train_state``), the loss, the
+    batch statistics, the gradients and the updated weights; with the
+    ``leaky_relu`` sides of the single-device step (``SidedF``) the inputs
+    that changed side; and the error of a network whose width the model
+    axis does not divide."""
+    from semantic_suma_tpu_torch.models import rangenet as rn
+    from semantic_suma_tpu_torch.models.segmenter import create_train_state
+    from semantic_suma_tpu_torch.parallel import sharding as shp
+    z = np.load(batch_file)
+    mesh = shp.make_2d_mesh(2, 2, device=device)
+    data, model = mesh.axes["data"], mesh.axes["model"]
+    b = z["images"].shape[0] // data.size
+    part = slice(data.rank * b, (data.rank + 1) * b)
+    sides = np.load(sides_file)
+    sided = SidedF([sides[f"s{k}"] for k in range(len(sides.files))], part)
+    rn.F = sided
+    schedule, state = create_train_state(rn.small_rangenet(
+        dtype=torch.float32), seed=0, device=device)
+    full = {k: tuple(p.shape) for k, p in state.model.named_parameters()}
+    state = shp.shard_train_state(state, mesh)
+    step = shp.make_sharded_train_step(schedule, mesh,
+                                       torch.as_tensor(z["cw"]))
+    state, metrics = step(state, torch.as_tensor(z["images"][part]),
+                          torch.as_tensor(z["labels"][part]),
+                          torch.as_tensor(z["valid"][part]))
+    params = dict(state.model.named_parameters())
+    split = {n for n, m in state.model.named_modules()
+             if getattr(m, "model_group", None) is not None}
+    local = {f"{n}.weight": (tuple(params[f"{n}.weight"].shape),
+                             tuple(state.optimizer.state[
+                                 params[f"{n}.weight"]]["exp_avg"].shape))
+             for n in split}
+    state = shp.unshard_train_state(state, mesh)
+    out = {"place": (data.rank, model.rank), "data_ranks": data.ranks,
+           "model_ranks": model.ranks, "full_shapes": full, "local": local,
+           "moved": np.concatenate(sided.moved),
+           "loss": float(metrics["loss"]),
+           "accuracy": float(metrics["accuracy"]),
+           "grads": {k: p.grad.numpy().copy()
+                     for k, p in state.model.named_parameters()},
+           "params": {k: p.detach().numpy().copy()
+                      for k, p in state.model.named_parameters()},
+           "moments": {k: state.optimizer.state[p]["exp_avg"].numpy().copy()
+                       for k, p in state.model.named_parameters()},
+           "buffers": {k: b_.numpy().copy()
+                       for k, b_ in state.model.named_buffers()}}
+    rn.F = torch.nn.functional
+    _, odd = create_train_state(rn.RangeNet(
+        stage_blocks=(1, 1, 2, 2, 1), widths=(16, 32, 64, 96, 128, 129),
+        dtype=torch.float32), seed=0, device=device)
+    try:
+        shp.shard_train_state(odd, mesh)
+        out["odd"] = None
+    except ValueError as e:
+        out["odd"] = str(e)
+    return out
+
+
 def suite(rank, device, cfg, scans_file, forced_file, jax_ckpt, out_dir,
           batch_file, sides_file):
     """The two-rank checks of ``torch_shared.two_ranks`` in one start of

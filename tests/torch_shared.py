@@ -104,7 +104,7 @@ def jax_session(scans_file, d, n, forced_path, ckpt_path=None, stop=None):
     return rows, slam
 
 
-def _single_device_step(batch_file, sides_path):
+def single_device_step(batch_file, sides_path):
     """The port's single-device f32 step of ``small_rangenet`` on the whole
     batch, recording each ``leaky_relu`` input's side for the ranks."""
     from semantic_suma_tpu_torch.models import rangenet as trn
@@ -126,8 +126,23 @@ def _single_device_step(batch_file, sides_path):
     return {"loss": float(m["loss"]), "accuracy": float(m["accuracy"]),
             "grads": {k: p.grad.numpy().copy()
                       for k, p in state.model.named_parameters()},
+            "params": {k: p.detach().numpy().copy()
+                       for k, p in state.model.named_parameters()},
+            "moments": {k: state.optimizer.state[p]["exp_avg"].numpy().copy()
+                        for k, p in state.model.named_parameters()},
             "buffers": {k: t.numpy().copy()
                         for k, t in state.model.named_buffers()}}
+
+
+def write_train_batch(path, b=4, h=16, w=96, seed=3):
+    """The seeded batch of the port's multi-rank training tests."""
+    rng = np.random.default_rng(seed)
+    np.savez(path,
+             images=rng.normal(size=(b, h, w, 5)).astype(np.float32),
+             labels=rng.integers(0, 20, size=(b, h, w)).astype(np.int32),
+             valid=rng.random((b, h, w)) < 0.8,
+             cw=rng.uniform(0.5, 2.0, 20).astype(np.float32))
+    return path
 
 
 def _two_rank_suite(work):
@@ -138,15 +153,8 @@ def _two_rank_suite(work):
     jax_ckpt = str(work / "jax.npz")
     rows, slam = jax_session(scans, 2, JAX_SCANS, work / "forced2.npz",
                              jax_ckpt, STOP)
-    rng = np.random.default_rng(3)
-    b, h, w = 4, 16, 96
-    batch = work / "batch.npz"
-    np.savez(batch,
-             images=rng.normal(size=(b, h, w, 5)).astype(np.float32),
-             labels=rng.integers(0, 20, size=(b, h, w)).astype(np.int32),
-             valid=rng.random((b, h, w)) < 0.8,
-             cw=rng.uniform(0.5, 2.0, 20).astype(np.float32))
-    single = _single_device_step(batch, work / "sides.npz")
+    batch = write_train_batch(work / "batch.npz")
+    single = single_device_step(batch, work / "sides.npz")
     ranks = launch(torch_ranks.suite, 2,
                    (torch_ranks.small_cfg(), scans, str(work / "forced2.npz"),
                     jax_ckpt, str(work), str(batch), str(work / "sides.npz")),
