@@ -32,9 +32,15 @@ and the exit code is non-zero:
      8 warm-up + 60 timed full-width scans of the synthetic world with the
      bilateral filter on; launch counters are zeroed just before it and read
      just after; asserts both kernels ran, no creation was dropped, and the
-     aligned ATE against ground truth is <= 0.05 m;
+     aligned ATE against ground truth is <= 0.05 m; counts each timed
+     step's synchronizing CUDA operations (CUDA sync debug mode) beside its
+     Gauss-Newton iterations and ``to_host`` reads, and asserts that no
+     step synchronizes outside Gauss-Newton more than once (twice on a scan
+     whose fallback runs: the branch flags); times the flags' two designs
+     (one read after Gauss-Newton, or on every stopping test);
   6. the package's default path once (``use_filtered_vertexmap=False``,
-     8 + 30 scans of the same world): finite poses, no dropped creation;
+     8 + 30 scans of the same world): finite poses, no dropped creation,
+     and phase 5's synchronization bound;
   7. the pose graph: rings of 128 to 4096 poses with noisy odometry and 8
      robust loop edges, each solved on the card and with ``device="cpu"``;
      the two results must agree (1.5e-4 m and rad at 128 poses, growing with
@@ -85,8 +91,11 @@ and the exit code is non-zero:
      memory, and no host sync in a call;
  14. kernel C (KNN label vote) against its plain version at 64x900 on two
      random inputs (forced depth ties, +-inf, NaN, all-invalid rows, ties
-     across the wrap seam) and on the mid network's output of phase 13, on
-     consecutive calls and after CUDA-graph replays: exactly equal;
+     across the wrap seam), an input of runs of equal range differences
+     with NaN and +-inf, and the mid network's output of phase 13, on
+     consecutive calls and after CUDA-graph replays, and at 32x450,
+     32x180, 16x96, 1x7 and 7x1: exactly equal; its replayed-graph time
+     beside the earlier kernel's;
  15. both networks' mIoU on the 12 held-out synthetic scans of their
      ``.json``, each within 0.03 of the recorded value;
  16. the segmenter in the loop (``bench.py:217-242``): the mid network
@@ -144,7 +153,8 @@ and the exit code is non-zero:
      within 0.5% (at depth 4 the near-capacity rule compacts the arena at
      most drains, which moves the map: that run is held to the ATE limit and
      its difference printed); every run's ATE <= 0.05 m, scans/s, host reads
-     and fetches a scan;
+     and fetches a scan, and phase 5's synchronization bound over each run's
+     timed scans;
  29. ``[sharded-train-2d]``: phase 26's batch on 4 ranks as a 2 x 2 ``("data",
      "model")`` grid (``make_2d_mesh``; the kernels of >= 128 output channels
      split over ``model``) against the same one-device step:
@@ -311,7 +321,7 @@ def phase_floors(dev):
           f"atomicMin on distinct cells {atomics_per_s / 1e9:.1f} G/s; "
           f"SM clock (max) {sm_hz / 1e6:.0f} MHz")
     return {"launch_floor_ms": floor_ms, "atomics_per_s": atomics_per_s,
-            "sm_hz": sm_hz}
+            "sm_hz": sm_hz, "empty_launch": empty}
 
 
 def _needed_taps(valid: torch.Tensor, radius: int) -> int:
@@ -685,6 +695,106 @@ def _device_profile(slam, scans, ms_per_scan, step=None):
               f"{count / len(scans):7.1f} calls/scan  {key[:90]}")
 
 
+# The pre-redesign kernel C's replayed-graph ms at 64x900 (PERF.md, PR 9's
+# final run on the same card model): printed beside the kernel's own time.
+KNN_EARLIER_MS = 0.01351
+
+
+class _SyncTally:
+    """The synchronizing CUDA operations of a run's timed steps, counted by
+    CUDA sync debug mode, beside its Gauss-Newton iterations
+    (``icp.gn_counts``), its track losses and its ``to_host`` reads (the
+    packed fetches the window waits for included). A step may
+    synchronize once a Gauss-Newton iteration and once for its branch flags,
+    twice on a scan whose fallback runs (core/pipeline.py)."""
+
+    def __init__(self, slam):
+        self.slam = slam
+        self.syncs = self.gn = self.losses = self.steps = self.reads = 0
+        self.fetches = 0
+        self.worst = 0  # most synchronizations outside Gauss-Newton a call
+
+    def run(self, fn, steps: int):
+        """Call ``fn`` (it runs ``steps`` steps and drains them) counted."""
+        from semantic_suma_tpu_torch.device import to_host
+        from semantic_suma_tpu_torch.ops import icp
+        gn0, loss0 = icp.gn_counts["iterations"], self.slam.track_loss_count
+        reads0 = to_host.count
+        waits = self.slam.stopwatch.stats["fetch-wait"]
+        fetch0 = waits.count
+        out = []
+        n = len(_sync_warnings(lambda: out.append(fn())))
+        gn = icp.gn_counts["iterations"] - gn0
+        losses = self.slam.track_loss_count - loss0
+        self.syncs += n
+        self.gn += gn
+        self.losses += losses
+        self.steps += steps
+        self.reads += to_host.count - reads0
+        self.fetches += waits.count - fetch0
+        self.worst = max(self.worst, n - gn - losses)
+        return out[0]
+
+    def check(self, tag: str, per_call: bool) -> str:
+        """Assert the bound (for each call with ``per_call``, else over the
+        run) and return the line that reports the counts."""
+        outside = self.syncs - self.gn
+        line = (f"synchronizing operations (CUDA sync debug mode) "
+                f"{self.syncs / self.steps:.2f} a scan, Gauss-Newton "
+                f"iterations {self.gn / self.steps:.2f}, outside them "
+                f"{outside / self.steps:.3f} (track losses {self.losses}"
+                + (f", most in one scan {self.worst}" if per_call else "")
+                + f"); to_host reads {self.reads / self.steps:.2f} a scan, "
+                f"{(self.reads - self.gn - self.fetches) / self.steps:.3f} "
+                f"outside Gauss-Newton and the {self.fetches} fetches")
+        if (per_call and self.worst > 1) \
+                or outside > self.steps + self.losses \
+                or self.reads - self.gn - self.fetches \
+                > self.steps + self.losses:
+            raise AssertionError(f"{tag}: the steps synchronize outside "
+                                 f"Gauss-Newton beyond one flag read: {line}")
+        return line
+
+
+def _flag_read_costs(slam, cfg, iterations: float) -> str:
+    """The branch flags' two designs on the last state of a run: computed
+    and read once after Gauss-Newton (the port's ``read_flags``, which
+    also orthonormalizes the pose on the host), against computed on every
+    Gauss-Newton iteration and read with its stopping test, which saves the
+    read and adds the flags' launches to every iteration (and would still
+    orthonormalize after the last). Host clock, 200 calls each after 5."""
+    from semantic_suma_tpu_torch.core.pipeline import (jump_flag,
+                                                       pose_and_refresh,
+                                                       read_flags)
+    st = slam.state
+
+    def flags():
+        _, moved, need = pose_and_refresh(st.pose, st.last_increment,
+                                          st.timestamp, st.map, cfg)
+        return (jump_flag(st.last_increment, st.last_increment, st.timestamp,
+                          cfg.icp), need, moved)
+
+    def per_call_ms(fn, n=200):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    computed = per_call_ms(flags)
+    read = per_call_ms(lambda: read_flags(*flags()))
+    on_stop = iterations * computed
+    kept = "the separate read" if read <= on_stop else "the stopping test"
+    return (f"branch flags: computed {computed:.4f} ms a call (host clock, "
+            f"back to back), computed, read and the pose orthonormalized "
+            f"{read:.4f} ms; on every stopping test ({iterations:.2f} "
+            f"iterations a scan) at least {on_stop:.4f} ms a scan against "
+            f"the separate read's {read:.4f}: {kept} is the cheaper")
+
+
 def phase_main_path(dev, profile_scans: int = 0):
     from semantic_suma_tpu_torch.config import odometry_config
     from semantic_suma_tpu_torch.core.pipeline import StageTimer, SurfelSLAM
@@ -712,10 +822,12 @@ def phase_main_path(dev, profile_scans: int = 0):
     torch.cuda.synchronize()
     slam.timer = StageTimer()
     syncs0 = slam.syncs
+    tally = _SyncTally(slam)
     t0 = time.perf_counter()
     for i in range(n_warm, n):
         s = scans[i]
-        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+        tally.run(lambda: slam.process_scan(s.points, s.labels, s.probs,
+                                            s.valid), 1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _read_launch_counts()
@@ -748,6 +860,8 @@ def phase_main_path(dev, profile_scans: int = 0):
           f"{slam.creations_dropped}")
     print(f"[main] aligned ATE {ate:.5f} m, peak device memory "
           f"{peak / 2**20:.1f} MiB")
+    print(f"[main] {tally.check('main', True)}")
+    print(f"[main] {_flag_read_costs(slam, cfg, iters)}")
     print(f"[main] launches: {launches}")
     if launches["bilateral_filter"] != n:
         raise AssertionError(f"bilateral ran {launches['bilateral_filter']} "
@@ -772,15 +886,24 @@ def phase_main_path(dev, profile_scans: int = 0):
 CHUNK_SIZE, CHUNK_DEPTH, CHUNK_DEPTH_HELD = 8, 4, 1
 
 
-def _drive_async(slam, scans, n_warm):
+def _drive_async(slam, scans, n_warm, tally=None):
     """``process_scan_async`` over ``scans`` and ``flush``; returns the host
-    seconds from scan ``n_warm`` to the end of the flush (synchronized)."""
-    for i, s in enumerate(scans):
-        if i == n_warm:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    seconds from scan ``n_warm`` to the end of the flush (synchronized).
+    With a ``_SyncTally``, the scans from ``n_warm`` on and the flush are
+    counted in it."""
+    def drive(part):
+        for s in part:
+            slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
+        slam.flush()
+
+    for s in scans[:n_warm]:
         slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
-    slam.flush()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if tally is None:
+        drive(scans[n_warm:])
+    else:
+        tally.run(lambda: drive(scans[n_warm:]), len(scans) - n_warm)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -804,7 +927,8 @@ def phase_chunked(dev):
     rule never fires, and the chunked run is held to the per-step one: the
     largest position difference within ``max(3 x floor, 1 mm)``, the last
     map count within 0.5%, no compaction, ATE <= 0.05 m. Prints scans/s,
-    host reads and fetches a scan of every run."""
+    host reads and fetches a scan of every run, and holds each run's timed
+    scans to the main path's synchronization bound (``_SyncTally``)."""
     from semantic_suma_tpu_torch.config import odometry_config
     from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
     from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
@@ -829,7 +953,8 @@ def phase_chunked(dev):
                           device=dev)
         if name == "chunked":
             _zero_launch_counts()
-        dt = _drive_async(slam, scans, n_warm)
+        tally = _SyncTally(slam)
+        dt = _drive_async(slam, scans, n_warm, tally)
         if name == "chunked":
             launches = _read_launch_counts()
         runs[name] = slam
@@ -843,6 +968,8 @@ def phase_chunked(dev):
               f"{slam.map_version}, map surfels "
               f"{slam.statistics[-1]['map-count']}, dropped creations "
               f"{slam.creations_dropped}, aligned ATE {ates[name]:.5f} m")
+        print(f"[chunked] {name}, the timed scans: "
+              f"{tally.check('chunked: ' + name, False)}")
     est = {k: v.trajectory() for k, v in runs.items()}
     count = {k: v.statistics[-1]["map-count"] for k, v in runs.items()}
 
@@ -902,12 +1029,17 @@ def phase_default_path(dev):
     gt = circular_trajectory(n, radius=18.0, step=1.5, device=dev)
     scans = [render_scan(world, gt[i], cfg.data) for i in range(n)]
     slam = SurfelSLAM(cfg, device=dev)
+    tally = _SyncTally(slam)
     for i in range(n):
         if i == n_warm:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         s = scans[i]
-        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+        if i < n_warm:
+            slam.process_scan(s.points, s.labels, s.probs, s.valid)
+        else:
+            tally.run(lambda: slam.process_scan(s.points, s.labels, s.probs,
+                                                s.valid), 1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     est = slam.trajectory()
@@ -921,6 +1053,7 @@ def phase_default_path(dev):
           f"warm-up + {n_timed} timed): {n_timed / dt:.2f} scans/s, "
           f"{dt / n_timed * 1e3:.2f} ms/scan, aligned ATE {ate:.5f} m, map "
           f"surfels {slam.statistics[-1]['map-count']}, dropped creations 0")
+    print(f"[default] {tally.check('default', True)}")
 
 
 def _ring_graph(n: int = 128, n_loops: int = 8, seed: int = 0):
@@ -1845,20 +1978,51 @@ def _knn_inputs(h, w, seed, dev):
             torch.from_numpy(depth.astype(np.float32)).to(dev))
 
 
+def _knn_tie_runs(h, w, seed, dev):
+    """Any ``[H, W]``: range steps of 0.25 m along both axes (runs of equal
+    range differences, exact in float32, so that the window order decides
+    which neighbours vote), a few classes, and NaN, +inf and -inf ranges."""
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 4, size=(h, w)).astype(np.int32)
+    x, y = np.arange(w), np.arange(h)
+    depth = (4.0 + 0.25 * (x[None, :] % 3) + 0.25 * (y[:, None] % 2)
+             + 0.25 * rng.integers(0, 2, size=(h, w)))
+    m = rng.uniform(size=(h, w))
+    depth[m < 0.06] = np.nan
+    depth[(m >= 0.06) & (m < 0.12)] = np.inf
+    depth[(m >= 0.12) & (m < 0.15)] = -np.inf
+    return (torch.from_numpy(cls).to(dev),
+            torch.from_numpy(depth.astype(np.float32)).to(dev))
+
+
+# [knn]: the shapes besides the path's 64x900 at which kernel C is held
+KNN_SHAPES = ((32, 450), (32, 180), (16, 96), (1, 7), (7, 1))
+KNN_TURNS = 5
+
+
 def phase_knn(dev, floors, real):
-    """Kernel C against its plain version at 64x900: two random inputs and
-    the real network output of a rendered scan, on consecutive calls and
-    after CUDA-graph replays; the labels must be exactly equal. Prints the
-    replayed-graph and eager ms, the plain version's ms and the bound."""
+    """Kernel C against its plain version at 64x900: two random inputs, runs
+    of equal range differences with NaN and +-inf ranges, and the real
+    network output of a rendered scan, on consecutive calls and after
+    CUDA-graph replays; and at ``KNN_SHAPES`` (runs of equal differences,
+    and random inputs where the shape holds their seam columns). The labels
+    must be exactly equal. Prints the replayed-graph and eager ms beside
+    the earlier kernel's, the plain version's ms and the bound."""
     from semantic_suma_tpu_torch.ops.knn import (knn_clean_image,
                                                  knn_clean_image_plain)
 
     h, w = real[0].shape
     inputs = [("random-1", *_knn_inputs(h, w, 1, dev)),
               ("random-2", *_knn_inputs(h, w, 2, dev)),
+              ("tie-runs", *_knn_tie_runs(h, w, 3, dev)),
               ("scan", *real)]
+    small = [(f"{kind}-{hh}x{ww}", *make(hh, ww, 4, dev))
+             for hh, ww in KNN_SHAPES
+             for kind, make in (("tie-runs", _knn_tie_runs),
+                                ("random", _knn_inputs))
+             if make is _knn_tie_runs or (hh >= 4 and ww >= 5)]
     checks, changed = 0, {}
-    for name, cls, depth in inputs + inputs[:1]:
+    for name, cls, depth in inputs + inputs[:1] + small:
         got = knn_clean_image(cls, depth)
         want = knn_clean_image_plain(cls, depth)
         torch.cuda.synchronize()
@@ -1881,7 +2045,17 @@ def phase_knn(dev, floors, real):
             raise AssertionError(f"knn {name}: wrong after a graph replay")
         checks += 1
     cls, depth = real
-    ms, eager_ms = time_ms(lambda: knn_clean_image(cls, depth), 2000)
+    eager_ms = _events_ms(lambda: knn_clean_image(cls, depth), 2000, 3)
+    # the kernel on the scan and on a random input in replayed graphs, in
+    # turns with the empty kernel (the launch floor at the same clocks):
+    # the median of KNN_TURNS turns of 500 replays each
+    rnd = inputs[0][1:]
+    turns = [(graph_ms(floors["empty_launch"], 500),
+              graph_ms(lambda: knn_clean_image(cls, depth), 500),
+              graph_ms(lambda: knn_clean_image(*rnd), 500))
+             for _ in range(KNN_TURNS)]
+    floor_ms, ms, rnd_ms = (float(np.median(t)) for t in zip(*turns))
+    spread = (min(t[1] for t in turns), max(t[1] for t in turns))
     plain_ms = _events_ms(lambda: knn_clean_image_plain(cls, depth), 20, 2)
     if not torch.equal(knn_clean_image(cls, depth),
                        knn_clean_image_plain(cls, depth)):
@@ -1894,9 +2068,14 @@ def phase_knn(dev, floors, real):
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "fp32": in_rows * 4 / FP32_FLOP_PER_S * 1e3}
     bound_ms = max(terms.values())
-    print(f"[knn] kernel C: {checks} comparisons exact (labels changed by the "
-          f"vote: {changed}); kernel {ms:.5f} ms in a replayed graph (eager "
-          f"calls {eager_ms:.5f} ms), plain {plain_ms:.3f} ms (eager), "
+    print(f"[knn] kernel C: {checks} comparisons exact, at 64x900 and "
+          f"{', '.join(f'{a}x{b}' for a, b in KNN_SHAPES)} (labels changed "
+          f"by the vote: {changed}); kernel {ms:.5f} ms in a replayed graph "
+          f"on the scan (median of {KNN_TURNS} turns, {spread[0]:.5f} to "
+          f"{spread[1]:.5f}; random-1 {rnd_ms:.5f}; the empty kernel in the "
+          f"same turns {floor_ms:.5f}; before the shared-memory tile "
+          f"{KNN_EARLIER_MS} ms, PERF.md; eager calls {eager_ms:.5f} ms), "
+          f"plain {plain_ms:.3f} ms (eager), "
           f"library none (no PyTorch call computes the vote), bound "
           f"{bound_ms:.6f} ms (bytes {terms['bytes']:.6f} for {nbytes} B, "
           f"fp32 {terms['fp32']:.6f}), launch floor "
@@ -1905,7 +2084,8 @@ def phase_knn(dev, floors, real):
             "source": "semantic_suma_tpu_torch/csrc/knn.cu",
             "replaces": "semantic_suma_tpu/models/rangenet.py:208",
             "max_abs_err": 0, "ms": ms, "eager_ms": eager_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "earlier_ms": KNN_EARLIER_MS, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_ms == terms["bytes"]
             else "operations", "library_ms": None}
 
@@ -3084,7 +3264,8 @@ def main() -> int:
         raise AssertionError(f"launched on no path: {never}; only the KITTI "
                              "scan and the two-stream render may be")
     keys = ("name", "shape", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "eager_ms", "plain_ms",
+            "launches_by_path", "max_abs_err", "ms", "eager_ms",
+            "earlier_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "real_ms", "real_eager_ms",
             "real_bound_ms")
     print(json.dumps({"held_off_path": [{k: r[k] for k in keys if k in r}

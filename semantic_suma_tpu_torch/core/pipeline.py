@@ -4,14 +4,18 @@ track-loss fallback -> map fusion -> model render, and the host loop with
 its loop-closure wiring.
 
 The JAX package compiles one device program per scan. Here the step runs
-eagerly; the Gauss-Newton loop, the fallback, the view refresh and the
-creation append read a few scalars to the host (``device.to_host``, counted
-in ``StepInfo.syncs``) to choose their branch. ``SurfelSLAM`` drives the step
-and, when enabled, the loop-closure state machine and the host-RAM spill of
-the map arena (``core/spill``). With ``chunk_size=K`` and loop closure off,
-``process_scan_async`` runs K scans per dispatch (``odometry_chunk_fetch``)
-and reads their K packed result rows with one fetch; each step still makes
-its own host reads.
+eagerly and reads the host (``device.to_host``, counted in
+``StepInfo.syncs``) only for its branches: once per Gauss-Newton iteration
+(the stopping test), and once for its two branch flags, the track-loss jump
+and the view refresh, read together with the new pose's rotation, which the
+host orthonormalizes (once more on a scan whose fallback runs, at the
+recovered pose). The creation append and the counts stay on the device
+(``core/surfel_map``). ``SurfelSLAM`` drives the step and, when enabled, the
+loop-closure state machine and the host-RAM spill of the map arena
+(``core/spill``). With ``chunk_size=K`` and loop
+closure off, ``process_scan_async`` runs K scans per dispatch
+(``odometry_chunk_fetch``) and reads their K packed result rows with one
+fetch.
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ class StepInfo(NamedTuple):
     stats: icp_ops.IcpStats
     iterations: int
     track_loss: bool              # the fallback alignment ran
-    n_created: int
-    n_dropped: int                # creations lost to an exhausted arena
+    n_created: torch.Tensor
+    n_dropped: torch.Tensor       # creations lost to an exhausted arena
     map_count: torch.Tensor
     syncs: int                    # host reads the step made (to_host)
 
@@ -112,12 +116,67 @@ def init_state(cfg: SumaConfig, device=None) -> SlamState:
     )
 
 
+def jump_flag(last_increment: torch.Tensor, increment: torch.Tensor, ts,
+              icp_cfg) -> torch.Tensor:
+    """The track-loss test as a device bool: the increment jumps w.r.t. the
+    motion model (``ts > 1`` only)."""
+    delta = lie.se3_inverse(last_increment) @ increment
+    t_err = torch.linalg.norm(delta[:3, 3])
+    r_err = lie.rotation_angle(delta)
+    return (ts > 1) & ((t_err > icp_cfg.fallback_translation_jump)
+                       | (r_err > icp_cfg.fallback_rotation_jump))
+
+
+def pose_and_refresh(pose: torch.Tensor, increment: torch.Tensor, ts,
+                     map_state: sm.MapState, cfg: SumaConfig, map_cfg=None,
+                     max_creates: int | None = None):
+    """``(increment, moved pose, refresh flag)`` of a step: the increment with
+    the first scan's rule (no motion at ``ts == 0``), ``pose @ increment``
+    before its rotation is orthonormalized (:func:`read_flags` does that),
+    and ``surfel_map.refresh_needed`` of ``map_state`` at its position (a
+    device bool; the projection keeps the translation), for the creations
+    one scan can make (``max_creates`` a rank's share, in the sharded
+    step)."""
+    eye = torch.eye(4, dtype=torch.float32, device=pose.device)
+    increment = torch.where(ts == 0, eye, increment)
+    moved = pose @ increment
+    hw = cfg.data.height * cfg.data.width
+    need = sm.refresh_needed(map_state, moved[:3, 3],
+                             cfg.map if map_cfg is None else map_cfg,
+                             sm.creation_region_rows(hw, max_creates))
+    return increment, moved, need
+
+
+def read_flags(jump: torch.Tensor | None, need: torch.Tensor,
+               moved: torch.Tensor):
+    """The step's one read: ``(jumped, refresh, new pose)``. The jump flag
+    (None when the fallback is off), the refresh flag and the rotation of
+    ``moved`` come to the host together; the rotation is projected onto
+    SO(3) there by ``lie.orthonormalize`` (LAPACK's SVD, the JAX package's
+    CPU answer: a CUDA SVD reads its convergence flags to the host, which
+    would wait for the device once more), and goes back to the device by a
+    non-blocking copy from pinned memory."""
+    dev = moved.device
+    flags = torch.stack([torch.zeros((), dtype=torch.bool, device=dev)
+                         if jump is None else jump, need])
+    vals = to_host(torch.cat([flags.to(moved.dtype),
+                              moved[:3, :3].reshape(-1)]))
+    rot = lie.orthonormalize(lie.rt_to_mat(
+        torch.tensor(vals[2:], dtype=moved.dtype).reshape(3, 3),
+        torch.zeros(3, dtype=moved.dtype)))[:3, :3]
+    if dev.type == "cuda":
+        rot = rot.pin_memory().to(dev, non_blocking=True)
+    return bool(vals[0]), bool(vals[1]), lie.rt_to_mat(rot, moved[:3, 3])
+
+
 def odometry_step(state: SlamState, points: torch.Tensor,
                   labels: torch.Tensor, probs: torch.Tensor,
                   point_valid: torch.Tensor, conf_threshold,
                   cfg: SumaConfig, timer: StageTimer | None = None):
     """Process one scan. Returns (new_state, StepInfo). The input state is
-    consumed: its map arena and pose table are updated in place."""
+    consumed: its map arena and pose table are updated in place. The host
+    reads of the step: one a Gauss-Newton iteration, and one for the branch
+    flags (two on a scan whose fallback runs)."""
     dev = state.pose.device
     reads0 = to_host.count
     ts = state.timestamp
@@ -137,37 +196,33 @@ def odometry_step(state: SlamState, points: torch.Tensor,
 
     result = icp_ops.gauss_newton(data_maps, ref_maps, t0, cfg.icp, cfg.model,
                                   semantic=semantic)
-    increment = result.pose
     iterations = result.iterations
 
-    # track-loss fallback: if the increment jumps w.r.t. the motion model,
-    # redo the alignment frame-to-frame with tighter gates
-    jumped = False
-    if cfg.icp.fallback_mode:
-        delta = lie.se3_inverse(state.last_increment) @ increment
-        t_err = torch.linalg.norm(delta[:3, 3])
-        r_err = lie.rotation_angle(delta)
-        jumped = to_host((ts > 1)
-                         & ((t_err > cfg.icp.fallback_translation_jump)
-                            | (r_err > cfg.icp.fallback_rotation_jump)))
-        if jumped:
-            recovery_cfg = replace(cfg.icp,
-                                   max_distance=cfg.icp.fallback_max_distance,
-                                   max_angle=cfg.icp.fallback_max_angle)
-            rec = icp_ops.gauss_newton(data_maps, state.last_maps, t0,
-                                       recovery_cfg, cfg.data,
-                                       semantic=semantic)
-            increment = rec.pose
-
-    increment = torch.where(ts == 0, eye, increment)  # first scan: no motion
-    new_pose = lie.orthonormalize(state.pose @ increment)
+    # the branch flags, read together: the track-loss fallback (the
+    # increment jumps w.r.t. the motion model: redo the alignment
+    # frame-to-frame with tighter gates) and the view refresh at the pose
+    increment, moved, need = pose_and_refresh(state.pose, result.pose, ts,
+                                              state.map, cfg)
+    jump = jump_flag(state.last_increment, result.pose, ts, cfg.icp) \
+        if cfg.icp.fallback_mode else None
+    jumped, refresh, new_pose = read_flags(jump, need, moved)
+    if jumped:
+        recovery_cfg = replace(cfg.icp,
+                               max_distance=cfg.icp.fallback_max_distance,
+                               max_angle=cfg.icp.fallback_max_angle)
+        rec = icp_ops.gauss_newton(data_maps, state.last_maps, t0,
+                                   recovery_cfg, cfg.data, semantic=semantic)
+        increment, moved, need = pose_and_refresh(state.pose, rec.pose, ts,
+                                                  state.map, cfg)
+        _, refresh, new_pose = read_flags(None, need, moved)
     if timer is not None:
         timer.mark(dev, "gauss_newton")
 
     frame = sm.data_surfel_init(data_maps, cfg.data, cfg.map)
     new_map, model_maps, n_created, n_dropped = sm.fuse_and_render(
         state.map, frame, new_pose, ts, cfg.data, cfg.map, conf_threshold,
-        (ts + 1) - cfg.loop.delta_timestamp, semantic=semantic)
+        (ts + 1) - cfg.loop.delta_timestamp, semantic=semantic,
+        refresh=refresh)
     if timer is not None:
         timer.mark(dev, "fuse_render")
 
@@ -188,29 +243,31 @@ def pack_results(pose, increment, stats: icp_ops.IcpStats, host_counts,
     the device. Layout: pose [0:16], increment [16:32], se3_log(increment)
     [32:38], then error, valid, inlier, outlier, inlier_residual, invalid,
     iterations, track_loss, n_created, n_dropped, map_count, block_count;
-    the counters are ``host_counts`` (numbers) followed by
-    ``device_counts`` (a device vector). All counters fit f32 exactly
-    (< 2^24)."""
+    the counters are ``host_counts`` (numbers, written by fill kernels: an
+    upload from pageable memory would wait for the device) followed by
+    ``device_counts`` (device values or numbers). All counters fit f32
+    exactly (< 2^24)."""
     dev = pose.device
     inc = increment.to(torch.float32)
+
+    def f32(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32).reshape(())
+        return torch.full((), float(x), dtype=torch.float32, device=dev)
+
     return torch.cat([
         pose.to(torch.float32).reshape(-1), inc.reshape(-1),
         lie.se3_log(inc).reshape(-1),
-        torch.stack([x.to(torch.float32).reshape(())
-                     for x in (stats.error, stats.valid, stats.inlier,
-                               stats.outlier, stats.inlier_residual,
-                               stats.invalid)]),
-        torch.tensor(host_counts, dtype=torch.float32, device=dev),
-        device_counts.to(torch.float32)])
+        torch.stack([f32(x) for x in (*stats, *host_counts,
+                                      *device_counts)])])
 
 
 def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
     """:func:`pack_results` of one :func:`odometry_step`."""
     return pack_results(
         info.pose, info.increment, info.stats,
-        [info.iterations, info.track_loss, info.n_created, info.n_dropped],
-        torch.stack([info.map_count.to(torch.float32).reshape(()),
-                     block_count.to(torch.float32).reshape(())]))
+        [info.iterations, info.track_loss],
+        [info.n_created, info.n_dropped, info.map_count, block_count])
 
 
 def odometry_step_fetch(state: SlamState, points, labels, probs, point_valid,
@@ -808,13 +865,14 @@ class SurfelSLAM(HostLoop):
         (returns its stats dict, or None while the pipeline fills).
 
         What it hides here: ``odometry_step`` itself still reads the host
-        (the Gauss-Newton stopping test every iteration, the refresh branch,
-        the creation count), so a dispatch returns only when the step's
-        device work is nearly done, and only the last fetch of a scan and
-        its host bookkeeping are deferred. The loop-closure protocol is the
-        reference's all the same: a live candidate chain stays pipelined
-        (verification is a per-scan device program whose pose_old anchor is
-        CARRIED ON DEVICE between dispatches, ``LoopCloser.dispatch_verify``),
+        (the Gauss-Newton stopping test every iteration, then the branch
+        flags), so a dispatch returns only after the step's Gauss-Newton
+        work; the fusion and render are left queued, and the last fetch of a
+        scan and its host bookkeeping are deferred. The loop-closure protocol
+        is the reference's all the same: a live candidate chain stays
+        pipelined (verification is a per-scan device program whose pose_old
+        anchor is CARRIED ON DEVICE between dispatches,
+        ``LoopCloser.dispatch_verify``),
         the graph optimization runs on a background thread with deferred
         integration, and the pipeline drains only for a candidate SEARCH and
         for above-gate rebases. Call :meth:`flush` after the last scan.

@@ -13,8 +13,14 @@ creations.
 In-place updates: :func:`refresh_active_incremental` writes blocks back into
 the arena in place, and :func:`fuse_and_render` writes the pose table in
 place, so a ``MapState`` passed in is consumed (the counterpart of the JAX
-package donating the carried state). The JAX ``lax.cond`` / ``while`` control
-on device values becomes Python control on values read to the host.
+package donating the carried state).
+
+No function here reads the device. The JAX package's ``lax.cond`` over the
+refresh flag becomes a Python branch on that flag when the caller has read
+it with its other flags (:func:`refresh_needed`), and a refresh masked by
+the device's flag when it has not; every other write that JAX makes under
+a condition or with ``mode="drop"`` is a fixed-size masked write here
+(:func:`_put_rows`), and the counts stay on the device.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..config import DataConfig, MapConfig
-from ..device import to_host
 from ..models.labels import is_movable
 from ..ops.icp import Maps
 from ..ops.projection import INV_PI, pixel_rays
@@ -152,8 +157,8 @@ def empty_map(cfg: MapConfig, device) -> MapState:
             cfg.max_poses, 1, 1),
         active_blocks=_fresh_view(nb, k, f, 0, device),
         active=make_packed(cfg.active_capacity, device),
-        active_count=torch.tensor((k - f) * bs, dtype=torch.int32,
-                                  device=device),
+        active_count=torch.full((), (k - f) * bs, dtype=torch.int32,
+                                device=device),
         block_count=torch.zeros((), dtype=torch.int32, device=device),
         anchor=torch.full((3,), torch.inf, dtype=torch.float32, device=device),
     )
@@ -162,6 +167,25 @@ def empty_map(cfg: MapConfig, device) -> MapState:
 # ---------------------------------------------------------------------------
 # active view lifecycle
 # ---------------------------------------------------------------------------
+
+def _put_rows(dst: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+              live: torch.Tensor) -> None:
+    """``dst[ids[live]] = rows[live]`` in fixed size, in place (JAX's
+    ``.at[ids].set(mode="drop")`` and its writes under ``lax.cond``): no host
+    read, no boolean indexing. The live ids must be distinct. A masked-out
+    entry repeats the first live entry's write, or, with none live, writes
+    the row at its clamped id back unchanged, so that no two writes to one
+    row carry different values."""
+    n = dst.shape[0]
+    # index with [1]-shaped tensors: a 0-dim tensor index is read to the host
+    first = torch.argmax(live.to(torch.uint8)).reshape(1)  # first live, or 0
+    tgt0 = torch.clamp(ids[first], 0, n - 1)
+    pad = (1,) * (rows.dim() - 1)
+    val0 = torch.where(live[first].reshape((1,) + pad), rows[first],
+                       dst[tgt0])
+    dst[torch.where(live, ids, tgt0)] = torch.where(
+        live.reshape(live.shape + pad), rows, val0)
+
 
 def _block_take(data: PackedSurfels, ids: torch.Tensor,
                 bs: int) -> PackedSurfels:
@@ -193,11 +217,10 @@ def sync(state: MapState, cfg: MapConfig) -> MapState:
     bs, nb, k, _ = _geometry(cfg)
     act = _recompute_local(state.active, state.poses)
     ok = state.active_blocks < nb
-    ids = state.active_blocks[ok]
     new_f = state.data.f.clone().reshape(nb, bs, NUM_F)
     new_i = state.data.i.clone().reshape(nb, bs, NUM_I)
-    new_f[ids] = act.f.reshape(k, bs, NUM_F)[ok]
-    new_i[ids] = act.i.reshape(k, bs, NUM_I)[ok]
+    _put_rows(new_f, state.active_blocks, act.f.reshape(k, bs, NUM_F), ok)
+    _put_rows(new_i, state.active_blocks, act.i.reshape(k, bs, NUM_I), ok)
     return state._replace(
         data=PackedSurfels(f=new_f.reshape(-1, NUM_F),
                            i=new_i.reshape(-1, NUM_I)),
@@ -264,8 +287,8 @@ def refresh_active(state: MapState, center: torch.Tensor, cfg: MapConfig,
     return state._replace(
         active_blocks=active_blocks,
         active=_block_take(state.data, active_blocks, bs),
-        active_count=torch.tensor(fresh_start_row, dtype=torch.int32,
-                                  device=dev),
+        active_count=torch.full((), fresh_start_row, dtype=torch.int32,
+                                device=dev),
         block_count=torch.clamp_max(next_alloc + f_blocks, nb).to(torch.int32),
         anchor=center.to(torch.float32))
 
@@ -296,15 +319,21 @@ def build_view(state: MapState, center: torch.Tensor, cfg: MapConfig,
 
 
 def refresh_active_incremental(state: MapState, center: torch.Tensor,
-                               cfg: MapConfig,
-                               margin: float = 25.0) -> MapState:
+                               cfg: MapConfig, margin: float = 25.0,
+                               when: torch.Tensor | None = None) -> MapState:
     """View refresh that moves only changed blocks: write back this cycle's
     used fresh blocks, score blocks (view-resident blocks scored from the
     authoritative view rows), swap evicted slots for incoming blocks, and zero
     the new fresh region. Unchanged map blocks keep stale creation-frame
     columns in the view; they are recomputed at writeback.
 
-    The arena (``state.data``) is updated IN PLACE."""
+    JAX loops over the used fresh blocks and the changed slots; here every
+    fresh slot and every map slot of the view is written in fixed size,
+    masked by ``slot < used_blocks`` and by ``i < n_changed``, with no host
+    read. ``when`` (a device bool) masks the whole refresh as well: where it
+    is false the state comes back as it was, so that a caller without a
+    host-side decision refreshes under the device's one. The arena
+    (``state.data``) is updated IN PLACE."""
     bs, nb, k, f_blocks = _geometry(cfg)
     km = k - f_blocks
     dev = center.device
@@ -319,17 +348,14 @@ def refresh_active_incremental(state: MapState, center: torch.Tensor,
     next_alloc = torch.clamp_max(state.active_blocks[km] + used_blocks, nb)
 
     # 1. write back the used fresh blocks
-    n_used = to_host(used_blocks)
-    if n_used:
-        slots = torch.arange(km, km + n_used, device=dev)
-        bids = state.active_blocks[slots]
-        ok = bids < nb
-        rows = _recompute_local(PackedSurfels(
-            act.f.reshape(k, bs, NUM_F)[slots].reshape(-1, NUM_F),
-            act.i.reshape(k, bs, NUM_I)[slots].reshape(-1, NUM_I)),
-            state.poses)
-        data_f[bids[ok]] = rows.f.reshape(n_used, bs, NUM_F)[ok]
-        data_i[bids[ok]] = rows.i.reshape(n_used, bs, NUM_I)[ok]
+    bids = state.active_blocks[km:]
+    used = (torch.arange(f_blocks, device=dev) < used_blocks) & (bids < nb)
+    if when is not None:
+        used = used & when
+    rows = _recompute_local(PackedSurfels(act.f[km * bs:], act.i[km * bs:]),
+                            state.poses)
+    _put_rows(data_f, bids, rows.f.reshape(f_blocks, bs, NUM_F), used)
+    _put_rows(data_i, bids, rows.i.reshape(f_blocks, bs, NUM_I), used)
 
     # 2. block scoring (global, overridden by the view's own rows)
     gvalid = data.valid.reshape(nb, bs)
@@ -348,8 +374,8 @@ def refresh_active_incremental(state: MapState, center: torch.Tensor,
                        dim=1)
     curm = state.active_blocks[:km]
     in_arena = curm < nb
-    dmin[curm[in_arena]] = v_dmin[in_arena]
-    cts[curm[in_arena]] = v_cts[in_arena]
+    _put_rows(dmin, curm, v_dmin, in_arena)
+    _put_rows(cts, curm, v_cts, in_arena)
 
     allocated = torch.arange(nb, device=dev) < next_alloc
     near = dmin < (cfg.active_radius + margin)
@@ -360,67 +386,102 @@ def refresh_active_incremental(state: MapState, center: torch.Tensor,
     target = torch.where(torch.isfinite(top_score), top_ids, pads)
 
     # 3. pair evicted slots with incoming blocks (both in stable order)
+    true = torch.ones((km,), dtype=torch.bool, device=dev)
     in_target = torch.zeros((nb,), dtype=torch.bool, device=dev)
-    in_target[target[target < nb]] = True
+    _put_rows(in_target, target, true, target < nb)
     stay = in_arena & in_target[torch.clamp_max(curm, nb - 1)]
     in_view = torch.zeros((nb,), dtype=torch.bool, device=dev)
-    in_view[curm[in_arena]] = True
+    _put_rows(in_view, curm, true, in_arena)
     t_incoming = ~((target < nb) & in_view[torch.clamp_max(target, nb - 1)])
     evict_slots = torch.sort(stay.to(torch.int32), stable=True).indices
     inc_perm = torch.sort((~t_incoming).to(torch.int32), stable=True).indices
     incoming_ids = target[inc_perm]
-    n_changed = to_host(km - stay.sum())
+    changed = torch.arange(km, device=dev) < km - stay.sum()
+    if when is not None:
+        changed = changed & when
 
+    # the first n_changed evicted slots are written back and take the
+    # incoming blocks; evicted and incoming blocks are disjoint (incoming
+    # blocks are not in the view), so the writebacks and the reads do not
+    # interact. ``evict_slots`` is a permutation of the map slots: the view's
+    # writes go to distinct slots, the unchanged ones with their own rows.
     ab = state.active_blocks.clone()
     act_f = act.f.clone().reshape(k, bs, NUM_F)
     act_i = act.i.clone().reshape(k, bs, NUM_I)
-    if n_changed:
-        # evicted blocks and incoming blocks are disjoint (incoming blocks are
-        # not in the view), so the writebacks and the reads do not interact
-        ev = evict_slots[:n_changed]
-        old = ab[ev]
-        wb = old < nb
-        rows = _recompute_local(PackedSurfels(
-            act_f[ev].reshape(-1, NUM_F), act_i[ev].reshape(-1, NUM_I)),
-            state.poses)
-        data_f[old[wb]] = rows.f.reshape(n_changed, bs, NUM_F)[wb]
-        data_i[old[wb]] = rows.i.reshape(n_changed, bs, NUM_I)[wb]
-        nid = incoming_ids[:n_changed]
-        gok = (nid < nb)[:, None, None]
-        safe = torch.clamp_max(nid, nb - 1)
-        act_f[ev] = torch.where(gok, data_f[safe], 0.0)
-        act_i[ev] = torch.where(gok, data_i[safe], 0)
-        ab[ev] = nid
+    old = ab[evict_slots]
+    rows = _recompute_local(PackedSurfels(
+        act_f[evict_slots].reshape(-1, NUM_F),
+        act_i[evict_slots].reshape(-1, NUM_I)), state.poses)
+    wb = changed & (old < nb)
+    _put_rows(data_f, old, rows.f.reshape(km, bs, NUM_F), wb)
+    _put_rows(data_i, old, rows.i.reshape(km, bs, NUM_I), wb)
+    gok = (changed & (incoming_ids < nb))[:, None, None]
+    safe = torch.clamp_max(incoming_ids, nb - 1)
+    keep = ~changed[:, None, None]
+    act_f[evict_slots] = torch.where(
+        keep, act_f[evict_slots], torch.where(gok, data_f[safe], 0.0))
+    act_i[evict_slots] = torch.where(
+        keep, act_i[evict_slots], torch.where(gok, data_i[safe], 0))
+    ab[evict_slots] = torch.where(changed, incoming_ids, old)
 
     # 4. new fresh region: known-empty arena blocks, so just zero
     fresh = next_alloc + torch.arange(f_blocks, device=dev)
     fresh = torch.where(fresh < nb, fresh,
                         nb + km + torch.arange(f_blocks, device=dev))
-    ab[km:] = fresh
-    act_f[km:] = 0.0
-    act_i[km:] = 0
+    active_count = torch.full((), fresh_start_row, dtype=torch.int32,
+                              device=dev)
+    block_count = torch.clamp_max(next_alloc + f_blocks, nb).to(torch.int32)
+    anchor = center.to(torch.float32)
+    if when is None:
+        ab[km:] = fresh
+        act_f[km:] = 0.0
+        act_i[km:] = 0
+    else:
+        ab[km:] = torch.where(when, fresh, ab[km:])
+        act_f[km:] = torch.where(when, 0.0, act_f[km:])
+        act_i[km:] = torch.where(when, 0, act_i[km:])
+        active_count = torch.where(when, active_count, state.active_count)
+        block_count = torch.where(when, block_count, state.block_count)
+        anchor = torch.where(when, anchor, state.anchor)
 
     return state._replace(
         active=PackedSurfels(f=act_f.reshape(-1, NUM_F),
                              i=act_i.reshape(-1, NUM_I)),
-        active_blocks=ab,
-        active_count=torch.tensor(fresh_start_row, dtype=torch.int32,
-                                  device=dev),
-        block_count=torch.clamp_max(next_alloc + f_blocks, nb).to(torch.int32),
-        anchor=center.to(torch.float32))
+        active_blocks=ab, active_count=active_count, block_count=block_count,
+        anchor=anchor)
+
+
+def refresh_needed(state: MapState, center: torch.Tensor, cfg: MapConfig,
+                   pending_creates: int, margin: float = 25.0,
+                   refresh_distance: float | None = None) -> torch.Tensor:
+    """The view-refresh test of :func:`maybe_refresh`, as a device bool:
+    the vehicle left the refresh radius (``refresh_distance``, by default
+    half the margin), the fresh region cannot hold this scan's potential
+    creations (while the arena can still allocate), or the anchor is
+    unset."""
+    bs, nb, k, _ = _geometry(cfg)
+    rd = refresh_distance if refresh_distance is not None else margin * 0.5
+    moved = torch.linalg.norm(center - state.anchor) > rd
+    full = (state.active_count + pending_creates > k * bs) \
+        & (state.block_count < nb)
+    return moved | full | torch.any(~torch.isfinite(state.anchor))
 
 
 def maybe_refresh(state: MapState, center: torch.Tensor, cfg: MapConfig,
-                  pending_creates: int, margin: float = 25.0) -> MapState:
-    """Refresh the view iff the vehicle left the refresh radius, the fresh
-    region cannot hold this scan's potential creations (while the arena can
-    still allocate), or the anchor is unset."""
-    bs, nb, k, _ = _geometry(cfg)
-    moved = torch.linalg.norm(center - state.anchor) > margin * 0.5
-    full = (state.active_count + pending_creates > k * bs) \
-        & (state.block_count < nb)
-    need = moved | full | torch.any(~torch.isfinite(state.anchor))
-    if to_host(need):
+                  pending_creates: int, margin: float = 25.0,
+                  refresh_distance: float | None = None,
+                  need: bool | None = None) -> MapState:
+    """Refresh the view iff :func:`refresh_needed` (JAX's ``lax.cond``).
+    ``need`` is that test's value when the caller has read it already, with
+    its other branch flags, and skips the refresh's work where it is false.
+    Without it nothing is read: the refresh runs masked by the device's
+    test."""
+    if need is None:
+        return refresh_active_incremental(
+            state, center, cfg, margin,
+            when=refresh_needed(state, center, cfg, pending_creates, margin,
+                                refresh_distance))
+    if need:
         return refresh_active_incremental(state, center, cfg, margin)
     return state
 
@@ -879,11 +940,14 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
                     confidence_threshold, render_ts_threshold,
                     semantic: bool = True, group=None,
                     create_mask: torch.Tensor | None = None,
-                    max_creates: int | None = None):
+                    max_creates: int | None = None,
+                    refresh: bool | None = None):
     """Per-scan map update + post-update model render on the active view,
     with a conditional view refresh. Returns (new_state, model_maps,
-    n_created, n_dropped). ``state`` is consumed: its arena and pose table
-    are updated in place.
+    n_created, n_dropped), the counts as device tensors: nothing here reads
+    the device. ``refresh`` is :func:`refresh_needed` at ``pose`` when the
+    caller has read it (see :func:`maybe_refresh`). ``state`` is consumed:
+    its arena and pose table are updated in place.
 
     Sharded (``group``, a ``parallel.distributed.Group``): ``state`` is this
     rank's shard and ``create_mask`` gives each pixel's creation to one rank
@@ -896,7 +960,8 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
     dev = pose.device
     pose = pose.to(torch.float32)
     pose_inv = lie.se3_inverse(pose)
-    ts = torch.as_tensor(timestamp, device=dev).to(torch.int32)
+    ts = (timestamp.to(torch.int32) if isinstance(timestamp, torch.Tensor)
+          else torch.full((), int(timestamp), dtype=torch.int32, device=dev))
     hw = data_cfg.height * data_cfg.width
     bs, nb, k, f_blocks = _geometry(map_cfg)
     view_rows = k * bs
@@ -906,7 +971,8 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
             f"fresh region ({f_blocks}x{bs} rows) must hold one scan's worst-"
             f"case creations ({mc_eff}); increase MapConfig.active_capacity")
 
-    state = maybe_refresh(state, pose[:3, 3], map_cfg, pending_creates=mc_eff)
+    state = maybe_refresh(state, pose[:3, 3], map_cfg, pending_creates=mc_eff,
+                          need=refresh)
 
     # ---- per-surfel update and render selection over one z-buffer pass ----
     act = state.active
@@ -958,37 +1024,34 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
         new_data.i[:, _VALID] = create.to(torch.int32)
 
     # ---- creations: compact to the front (pixel order kept), append ----
+    # The block of mc_eff rows is appended at the cursor in chunks of ch
+    # rows: chunk c lands iff the whole append fits the view and the arena
+    # and it holds creations (JAX's rule). Written in fixed size: the rows of
+    # the chunks that do not land are written with their own values, at
+    # their positions modulo the view, which no landing row takes (mc_eff
+    # <= the fresh region <= the view).
     n_chunks = 4 if mc_eff % 4 == 0 else 1
     ch = mc_eff // n_chunks
-    n_new_t = torch.sum(create)
-    n_new, active_count = to_host(torch.stack(
-        [n_new_t, state.active_count.to(n_new_t.dtype)]))
+    n_new = torch.sum(create)
     perm = torch.sort((~create).to(torch.int32), stable=True).indices
-    if n_chunks > 1 and n_new <= ch:
-        # only the first chunk holds creations: the tail is zero padding
-        take = perm[:ch]
-        blk_f = torch.cat([new_data.f[take], torch.zeros(
-            (mc_eff - ch, NUM_F), dtype=torch.float32, device=dev)])
-        blk_i = torch.cat([new_data.i[take], torch.zeros(
-            (mc_eff - ch, NUM_I), dtype=torch.int32, device=dev)])
-    else:
-        take = perm[:mc_eff]
-        blk_f, blk_i = new_data.f[take], new_data.i[take]
+    take = perm[:mc_eff]
+    blk_f, blk_i = new_data.f[take], new_data.i[take]
 
+    active_count = state.active_count.to(torch.int64)
     chunks_needed = (n_new + ch - 1) // ch
-    last_slot = (active_count + chunks_needed * ch - 1) // bs
-    arena_ok = to_host(state.active_blocks[min(max(last_slot, 0), k - 1)]
-                       < nb)
-    a_fit = (active_count + chunks_needed * ch <= view_rows) and arena_ok
-    n_created = n_new if a_fit else 0
+    end_row = active_count + chunks_needed * ch
+    last_slot = torch.clamp((end_row - 1) // bs, 0, k - 1).reshape(1)
+    arena_ok = (state.active_blocks[last_slot] < nb).reshape(())
+    a_fit = (end_row <= view_rows) & arena_ok
+    n_created = torch.where(a_fit, n_new, 0)
     n_dropped = n_new - n_created
 
     av, ai = upd.f, upd.i  # fresh tensors from _update_finish: write in place
-    if a_fit:
-        for c in range(chunks_needed):
-            lo = c * ch
-            av[active_count + lo:active_count + lo + ch] = blk_f[lo:lo + ch]
-            ai[active_count + lo:active_count + lo + ch] = blk_i[lo:lo + ch]
+    offs = torch.arange(mc_eff, device=dev)
+    lands = (a_fit & (offs < chunks_needed * ch))[:, None]
+    pos = (active_count + offs) % view_rows
+    av[pos] = torch.where(lands, blk_f, av[pos])
+    ai[pos] = torch.where(lands, blk_i, ai[pos])
     active2 = PackedSurfels(f=av, i=ai)
 
     poses = state.poses  # updated in place
@@ -996,9 +1059,9 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
     poses.index_copy_(0, slot.reshape(1), pose[None])
 
     state2 = state._replace(
-        count=state.count + n_created, poses=poses, active=active2,
-        active_count=torch.tensor(active_count + n_created,
-                                  dtype=torch.int32, device=dev))
+        count=(state.count + n_created).to(torch.int32), poses=poses,
+        active=active2,
+        active_count=(active_count + n_created).to(torch.int32))
 
     # ---- model render from the shared z-buffer ----
     has = winner_render >= 0
@@ -1032,8 +1095,7 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
                            map_cfg.log_prior - 0.5, map_cfg.log_prior)
     if group is not None and create_mask is not None:
         # a created pixel renders iff its owner rank had room for it
-        owner_fit = group.sum(torch.where(create_mask, int(a_fit), 0)
-                              .to(torch.int32)) > 0
+        owner_fit = group.sum((create_mask & a_fit).to(torch.int32)) > 0
         new_rsel = create_all & owner_fit & (cos_new > 0.01)
     else:
         new_rsel = create & a_fit & (cos_new > 0.01)
@@ -1057,7 +1119,7 @@ def update_map(state: MapState, frame: FrameInputs, pose: torch.Tensor,
                timestamp, data_cfg: DataConfig, map_cfg: MapConfig,
                confidence_threshold, semantic: bool = True):
     """Map update without the render output; returns a SYNCED state and the
-    number of surfels created."""
+    number of surfels created (a device tensor)."""
     state2, _, n_created, _ = fuse_and_render(
         state, frame, pose, timestamp, data_cfg, map_cfg,
         confidence_threshold, int(timestamp) + 1, semantic)
@@ -1073,8 +1135,8 @@ def _reset_view(state: MapState, cfg: MapConfig) -> MapState:
         active_blocks=_fresh_view(nb, k, f_blocks,
                                   state.block_count.to(torch.int64), dev),
         active=make_packed(k * bs, dev),
-        active_count=torch.tensor((k - f_blocks) * bs, dtype=torch.int32,
-                                  device=dev),
+        active_count=torch.full((), (k - f_blocks) * bs, dtype=torch.int32,
+                                device=dev),
         anchor=torch.full((3,), torch.inf, dtype=torch.float32, device=dev))
 
 

@@ -44,12 +44,12 @@ import torch
 
 from ..config import SumaConfig
 from ..core import surfel_map as sm
-from ..core.pipeline import HostLoop, pack_results
+from ..core.pipeline import (HostLoop, jump_flag, pack_results,
+                             pose_and_refresh, read_flags)
 from ..core.preprocessing import empty_maps, preprocess_scan
 from ..device import resolve_device, to_host
 from ..ops import icp as icp_ops
 from ..ops.icp import Maps
-from ..utils import lie
 from . import distributed
 from .distributed import Group
 
@@ -161,7 +161,7 @@ def sharded_step(cfg: SumaConfig, mcfg, mesh: Mesh, local: sm.MapState,
     rows = h // group.size
     hw = h * cfg.data.width
     semantic = cfg.semantic.enabled
-    ts_t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    ts_t = torch.full((), ts, dtype=torch.int32, device=dev)
 
     data_maps = preprocess_scan(points, labels, probs, point_valid,
                                 ts_t < cfg.semantic.init_scans, cfg)
@@ -170,38 +170,35 @@ def sharded_step(cfg: SumaConfig, mcfg, mesh: Mesh, local: sm.MapState,
     t0 = eye if cfg.icp.initialize_identity else last_inc
     result = icp_ops.gauss_newton(my_data, model_maps, t0, cfg.icp,
                                   cfg.model, semantic=semantic, group=group)
-    increment = result.pose
+    max_creates = -(-hw // group.size)
 
-    # track-loss fallback: the jump is computed from the replicated
-    # increment, so every rank takes the same branch
-    jumped = False
-    if cfg.icp.fallback_mode:
-        delta = lie.se3_inverse(last_inc) @ increment
-        t_err = torch.linalg.norm(delta[:3, 3])
-        r_err = lie.rotation_angle(delta)
-        jumped = ts > 1 and to_host(
-            (t_err > cfg.icp.fallback_translation_jump)
-            | (r_err > cfg.icp.fallback_rotation_jump))
-        if jumped:
-            recovery = replace(cfg.icp,
-                               max_distance=cfg.icp.fallback_max_distance,
-                               max_angle=cfg.icp.fallback_max_angle)
-            increment = icp_ops.gauss_newton(
-                my_data, last_maps, t0, recovery, cfg.data,
-                semantic=semantic, group=group).pose
-    if ts == 0:
-        increment = eye
-    new_pose = lie.orthonormalize(pose @ increment)
+    # the branch flags in one read: the track-loss fallback, computed from
+    # the replicated increment, so every rank takes the same branch (it
+    # steers the fallback's collectives), and this rank's view refresh,
+    # which steers no collective
+    increment, moved, need = pose_and_refresh(
+        pose, result.pose, ts_t, local, cfg, mcfg, max_creates)
+    jump = jump_flag(last_inc, result.pose, ts_t, cfg.icp) \
+        if cfg.icp.fallback_mode else None
+    jumped, refresh, new_pose = read_flags(jump, need, moved)
+    if jumped:
+        recovery = replace(cfg.icp,
+                           max_distance=cfg.icp.fallback_max_distance,
+                           max_angle=cfg.icp.fallback_max_angle)
+        rec = icp_ops.gauss_newton(my_data, last_maps, t0, recovery, cfg.data,
+                                   semantic=semantic, group=group)
+        increment, moved, need = pose_and_refresh(
+            pose, rec.pose, ts_t, local, cfg, mcfg, max_creates)
+        _, refresh, new_pose = read_flags(None, need, moved)
 
     frame = sm.data_surfel_init(data_maps, cfg.data, mcfg)
     create_mask = (torch.arange(hw, device=dev) % group.size) == group.rank
     new_local, new_model, n_created, n_dropped = sm.fuse_and_render(
         local, frame, new_pose, ts_t, cfg.data, mcfg, conf_threshold,
         (ts + 1) - cfg.loop.delta_timestamp, semantic=semantic, group=group,
-        create_mask=create_mask, max_creates=-(-hw // group.size))
+        create_mask=create_mask, max_creates=max_creates, refresh=refresh)
 
-    mine = torch.stack([torch.tensor(n_created, device=dev),
-                        torch.tensor(n_dropped, device=dev),
+    mine = torch.stack([n_created, n_dropped,
                         new_local.count.to(torch.int64),
                         new_local.block_count.to(torch.int64)])
     every = group.gather(mine)                                  # [D, 4]

@@ -127,8 +127,10 @@ def rt_to_mat(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     r = r.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([r, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype,
-                          device=r.device).expand(batch + (4,))[..., None, :]
+    # the last row of the identity (a fill kernel: an upload of constants
+    # from pageable memory would wait for the device)
+    bottom = torch.eye(4, dtype=r.dtype, device=r.device)[3].expand(
+        batch + (4,))[..., None, :]
     return torch.cat([top, bottom], -2)
 
 
