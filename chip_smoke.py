@@ -31,13 +31,17 @@ and the exit code is non-zero:
   5. the main path: ``SurfelSLAM`` (loop closure and spill off) on cuda over
      8 warm-up + 60 timed full-width scans of the synthetic world with the
      bilateral filter on; launch counters are zeroed just before it and read
-     just after; asserts both kernels ran, no creation was dropped, and the
-     aligned ATE against ground truth is <= 0.05 m; counts each timed
-     step's synchronizing CUDA operations (CUDA sync debug mode) beside its
-     Gauss-Newton iterations and ``to_host`` reads, and asserts that no
-     step synchronizes outside Gauss-Newton more than once (twice on a scan
-     whose fallback runs: the branch flags); times the flags' two designs
-     (one read after Gauss-Newton, or on every stopping test);
+     just after; asserts that kernels A, B, D and E ran, no creation was
+     dropped, and the aligned ATE against ground truth is no worse than the
+     JAX package's on the same cell (``compare/filtered_main_jax.json``,
+     written by ``compare/filtered_main.py jax``); counts each timed step's
+     synchronizing CUDA operations (CUDA sync debug mode) over the whole
+     step and its ``to_host`` reads, and asserts that no step synchronizes
+     more than once (twice on a scan whose fallback runs: the branch
+     flags), its Gauss-Newton loops not at all; times the flag read; then
+     steps each of the 68 scans from one state twice, with kernels D and E
+     and with their plain versions on the same latch: on every scan that
+     neither run caps the poses agree within 1e-4 m and 1e-5 rad;
   6. the package's default path once (``use_filtered_vertexmap=False``,
      8 + 30 scans of the same world): finite poses, no dropped creation,
      and phase 5's synchronization bound;
@@ -152,21 +156,33 @@ and the exit code is non-zero:
      ``max(3 x floor, 1 mm)`` of the per-step poses and its last map count
      within 0.5% (at depth 4 the near-capacity rule compacts the arena at
      most drains, which moves the map: that run is held to the ATE limit and
-     its difference printed); every run's ATE <= 0.05 m, scans/s, host reads
-     and fetches a scan, and phase 5's synchronization bound over each run's
-     timed scans;
+     its difference printed); every run's ATE no worse than phase 5's
+     reference, scans/s, host reads and fetches a scan (the depth-1 run
+     reads the host less than the per-step runs), and phase 5's
+     synchronization bound over each run's timed scans;
  29. ``[sharded-train-2d]``: phase 26's batch on 4 ranks as a 2 x 2 ``("data",
      "model")`` grid (``make_2d_mesh``; the kernels of >= 128 output channels
      split over ``model``) against the same one-device step:
      ``[train-parity]``'s limits on the loss, the batch statistics and every
      gathered gradient, the updated weights as far as the gradients explain;
      ms a step, each rank's peak memory, bytes of parameters and moments
-     beside the replicated layout's, and the collectives of a step.
+     beside the replicated layout's, and the collectives of a step;
+ 30. ``[icp]``: kernels D and E (``csrc/icp.cu``: one Gauss-Newton
+     linearization and its update) against their plain versions at the
+     inputs of a scan of the main cell and of the default one (57,600 data
+     pixels against a 64x900 model), from states at iterations 0 and 1: D's
+     counters exactly equal and its sums within 1e-5 of their
+     Cauchy-Schwarz scale, E's integer state exactly equal, its pose within
+     1e-5 and its error sums within 1e-5 relative; a whole loop each way;
+     the times of D and E (replayed graph, eager, latched), of their plain
+     versions and of cuBLAS's ``rows.T @ rows``, and a ``gauss_newton``
+     call against the host loop (no host read asserted). Phase 8 holds D
+     and E the same way at the inputs of a verify program.
 Phase 10 runs the segmenter and segmenter-full rows as well (each within
 twice the JAX package's round-5 row, no dropped creation) and the
 sharded-8dev row (8 ranks on the card; twice the JAX row, which was taken
 on a virtual CPU mesh; its full arena drops creations in both packages,
-held within 1% of JAX's count). Phases 13 to 15 run right
+held within 1% of JAX's count). Phases 13 to 15 and 30 run right
 after phase 3, phase 28 after phase 5, phase 22 after phase 11, phases 16
 to 21 and 23 to 27 last, with 29 after 26.
 Each of phases 5, 8, 9, 10 to 12, 16, 17, 19 to 25 and 28 counts the kernels'
@@ -174,7 +190,7 @@ launches from zero just before its run and reads them just after (a
 sharded run's ranks start from zero in their own processes and send their
 counts back: the sum and each rank's are printed). It prints the card's name and power limit, one
 ``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
-shape that a path launched and for kernel C (``launches`` is the sum
+shape that a path launched and for kernels C, D and E (``launches`` is the sum
 over the paths, ``launches_by_path`` the parts; the two shapes that no
 path launches, a KITTI scan's projection (phase 3) and the two-stream render
 (phases 3 and 8), are listed in a ``{"held_off_path": [...]}`` line with 0
@@ -188,8 +204,9 @@ replayed; the time of eager calls from Python is printed beside them. A
 kernel's bound is the largest of the times its bytes, its arithmetic and
 (kernel A) its exponentials or (kernel B) its unavoidable atomics need at
 the card's peak rates; every one of them lies under ``launch_floor_ms``.
-No single PyTorch call computes kernel C's vote: its ``library_ms`` is
-null.
+No single PyTorch call computes kernel C's vote or kernel E's solve and
+update: their ``library_ms`` is null; kernel D's is cuBLAS's
+``rows.T @ rows`` on the plain version's rows (the reduction alone).
 ``--profile-scans N`` traces N more scans after the main path with
 ``torch.profiler`` and prints the device time by kernel and the idle share,
 and does the same for N more scans of the loop path.
@@ -660,6 +677,243 @@ def phase_parity(dev, n_scans: int = 10):
           f"{worst_t:.3e} m, {worst_r:.3e} rad (limit 1e-3 each)")
 
 
+def _plain_gn(data, model, t0, icp_cfg, model_cfg, semantic=True,
+              max_iterations=None, group=None, early_exit=True):
+    """``icp.gauss_newton`` with the plain versions of kernels D and E on
+    the same latch (``group`` and ``early_exit`` do not apply)."""
+    from semantic_suma_tpu_torch.ops import icp
+    return icp.gauss_newton_latched(
+        data, model, t0, icp_cfg, model_cfg, semantic, max_iterations,
+        products=icp.icp_products_plain, update=icp.gn_update_plain)
+
+
+# the lower triangle's diagonal in a row of partial sums (ops/icp.NPART)
+_TRI_DIAG = [0, 2, 5, 9, 14, 20]
+
+
+def _hold_icp(tag, data, model, t0, cfg) -> dict:
+    """Kernels D and E against their plain versions on the card, on one
+    alignment's inputs. D from the state at ``t0`` and iterations 0 and 1:
+    the four counters exactly equal, every product within 1e-5 of its
+    Cauchy-Schwarz scale ``sqrt(AtA[i,i] AtA[j,j])`` (which bounds the sum
+    of the absolute terms, so sums taken in another order stay well inside
+    it; ``AtA[6,6]`` is the inlier residual) and the two error sums within
+    1e-5 relative. E from that state and D's partial sums: the integer state
+    (k, done, counters) exactly equal, the pose within 1e-5 and the error
+    sums within 1e-5 relative. Then one whole loop each way: the iterations
+    and the pose difference are printed."""
+    from semantic_suma_tpu_torch.ops import icp
+    ic, mc, sem = cfg.icp, cfg.model, cfg.semantic.enabled
+    img = icp._pack_model_image(model)
+    il = torch.tril_indices(6, 6)
+    out = {"d_abs": 0.0, "d_scaled": 0.0, "e_pose": 0.0, "e_rel": 0.0}
+    for k in (0, 1):
+        sf, si = icp.gn_state(t0, k)
+        part = icp.icp_products(sf, si, data, img, ic, mc, sem)
+        want = icp.icp_products_plain(sf, si, data, img, ic, mc, sem)
+        want = want[0].double().cpu()
+        got = part.double().sum(0).cpu()
+        if not torch.equal(got[29:33], want[29:33]):
+            raise AssertionError(f"[icp] {tag}: kernel D's counters "
+                                 f"{got[29:33].tolist()} against "
+                                 f"{want[29:33].tolist()}")
+        diag = torch.cat([want[_TRI_DIAG], want[28:29]])
+        full = torch.sqrt(torch.outer(diag, diag))
+        scale = torch.cat([full[il[0], il[1]], full[:6, 6]]).clamp_min(1e-30)
+        diff = (got[:27] - want[:27]).abs()
+        rel = ((got[27:29] - want[27:29]).abs()
+               / want[27:29].abs().clamp_min(1e-30))
+        out["d_abs"] = max(out["d_abs"], float(diff.max()),
+                           float((got[27:29] - want[27:29]).abs().max()))
+        out["d_scaled"] = max(out["d_scaled"], float((diff / scale).max()),
+                              float(rel.max()))
+        sf2, si2 = sf.clone(), si.clone()
+        icp.gn_update(part, sf, si, ic)
+        icp.gn_update_plain(part, sf2, si2, ic)
+        if not torch.equal(si, si2):
+            raise AssertionError(f"[icp] {tag}: kernel E's integer state "
+                                 f"{si.tolist()} against {si2.tolist()}")
+        out["e_pose"] = max(out["e_pose"],
+                            float((sf[:16] - sf2[:16]).abs().max()))
+        out["e_rel"] = max(out["e_rel"], float(
+            ((sf[16:19] - sf2[16:19]).abs()
+             / sf2[16:19].abs().clamp_min(1e-30)).max()))
+    if out["d_scaled"] > 1e-5 or out["e_pose"] > 1e-5 or out["e_rel"] > 1e-5:
+        raise AssertionError(f"[icp] {tag}: kernels D and E against their "
+                             f"plain versions: {out}")
+    rk = icp.gauss_newton(data, model, t0, ic, mc, sem)
+    rp = _plain_gn(data, model, t0, ic, mc, sem)
+    out["loop_iterations"] = (int(rk.iterations), int(rp.iterations))
+    out["loop_pose"] = float((rk.pose - rp.pose).abs().max())
+    print(f"[icp] {tag}: D against plain at iterations 0 and 1: counters "
+          f"equal, products within {out['d_scaled']:.3e} of their scale "
+          f"(largest |difference| {out['d_abs']:.3e}); E from D's sums: "
+          f"integer state equal, pose within {out['e_pose']:.3e}, errors "
+          f"{out['e_rel']:.3e} relative (limits 1e-5); a whole loop: "
+          f"{out['loop_iterations'][0]} iterations with the kernels, "
+          f"{out['loop_iterations'][1]} with the plain versions, poses "
+          f"{out['loop_pose']:.3e} apart")
+    return out
+
+
+def _icp_cell_inputs(dev, filtered: bool, n: int = 5):
+    """The inputs of the n-th scan's alignment in the main cell (filtered)
+    or the default one: its data maps, the model render of the scan before
+    and the motion model's increment, after ``n - 1`` scans of
+    ``SurfelSLAM``."""
+    import dataclasses
+
+    from semantic_suma_tpu_torch.config import odometry_config
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.core.preprocessing import preprocess_scan
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    cfg = odometry_config()
+    cfg = cfg.replace(preprocess=dataclasses.replace(
+        cfg.preprocess, use_filtered_vertexmap=filtered))
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n, radius=18.0, step=1.5, device=dev)
+    slam = SurfelSLAM(cfg, device=dev)
+    for i in range(n - 1):
+        s = render_scan(world, gt[i], cfg.data)
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+    st = slam.state
+    s = render_scan(world, gt[n - 1], cfg.data)
+    data = preprocess_scan(s.points, s.labels, s.probs, s.valid,
+                           st.timestamp < cfg.semantic.init_scans, cfg)
+    return cfg, data, st.model_maps, st.last_increment
+
+
+def phase_icp(dev, floors):
+    """Kernels D and E (``csrc/icp.cu``) against their plain versions at
+    the shapes of the main cell and the default one (57,600 data pixels
+    against a 64x900 model, nearest sampling, huber, semantic weights;
+    phase 8 holds them at the loop's verify inputs), then their times: one
+    call in a replayed graph and eager, a launch that finds the latch set,
+    the plain versions, cuBLAS's ``rows.T @ rows`` on the plain rows (the
+    reduction's library call), and a whole ``gauss_newton`` call with the
+    kernels against the host loop (``gauss_newton_host``)."""
+    from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.ops import icp
+
+    holds, inputs = {}, {}
+    for name, filtered in (("main", True), ("default", False)):
+        inputs[name] = _icp_cell_inputs(dev, filtered)
+        holds[name] = _hold_icp(name, *inputs[name][1:], inputs[name][0])
+    cfg, data, model, t0 = inputs["main"]
+    ic, mc, sem = cfg.icp, cfg.model, cfg.semantic.enabled
+    img = icp._pack_model_image(model)
+    h, w = data.vertex.shape[:2]
+    p, cells = h * w, mc.height * mc.width
+    nb = icp._blocks(p)
+    sf0, si0 = icp.gn_state(t0)
+    sf, si = sf0.clone(), si0.clone()
+    sfd, sid = icp.gn_state(t0)
+    sid[1:2].fill_(1)   # latched: both kernels return at once
+    part = torch.empty((nb, icp.NPART), dtype=torch.float32, device=dev)
+
+    def d_live():
+        icp.icp_products(sf0, si0, data, img, ic, mc, sem, out=part)
+
+    def restore():
+        sf.copy_(sf0)
+        si.copy_(si0)
+
+    def e_live():
+        restore()
+        icp.gn_update(part, sf, si, ic)
+
+    d_live()
+    d_ms, d_eager = time_ms(d_live, 2000)
+    d_dead = graph_ms(lambda: icp.icp_products(sfd, sid, data, img, ic, mc,
+                                               sem, out=part), 2000)
+    e_ms = graph_ms(e_live, 2000) - graph_ms(restore, 2000)
+    e_eager = _events_ms(e_live, 500, 10) - _events_ms(restore, 500, 10)
+    e_dead = graph_ms(lambda: icp.gn_update(part, sfd, sid, ic), 2000)
+    d_plain = _events_ms(lambda: icp.icp_products_plain(
+        sf0, si0, data, img, ic, mc, sem), 20, 3)
+    row = icp.icp_products_plain(sf0, si0, data, img, ic, mc, sem)
+    e_plain = _events_ms(lambda: (restore(), icp.gn_update_plain(
+        row, sf, si, ic)), 20, 3) - _events_ms(restore, 20, 3)
+    rows, _ = icp.build_rows(sf0[:16].view(4, 4), data, None, ic, mc, si0[0],
+                             sem, model_img=img)
+    lib_ms = graph_ms(lambda: rows.T @ rows, 2000)
+
+    def host_ms(fn, n):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        reads0 = to_host.count
+        t_0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t_0) / n * 1e3,
+                (to_host.count - reads0) / n)
+
+    gn = lambda: icp.gauss_newton(data, model, t0, ic, mc, sem)  # noqa: E731
+    gn_host = lambda: icp.gauss_newton_host(  # noqa: E731
+        data, model, t0, ic, mc, sem)
+    gn_dev = _events_ms(gn, 20, 3)
+    gn_clock, gn_reads = host_ms(gn, 20)
+    host_dev = _events_ms(gn_host, 10, 2)
+    host_clock, host_reads = host_ms(gn_host, 10)
+    its = int(icp.gauss_newton(data, model, t0, ic, mc, sem).iterations)
+
+    # bytes each input read once and each output written once: vertex and
+    # normal (24 B), two valid bytes, label and probability (8 B) a data
+    # pixel, the packed model image (32 B a cell), the state; D writes a
+    # row of 33 sums a block, E reads them and rewrites the state. D's
+    # arithmetic, ~150 float32 operations a pixel, is ~100x under its bytes
+    state_b = 4 * (icp._SF + icp._SI)
+    d_bytes = p * 34 + cells * 32 + state_b + nb * icp.NPART * 4
+    e_bytes = nb * icp.NPART * 4 + 2 * state_b
+    d_terms = {"bytes": d_bytes / HBM_BYTES_PER_S * 1e3,
+               "fp32": p * 150 / FP32_FLOP_PER_S * 1e3}
+    d_bound = max(d_terms.values())
+    e_bound = e_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[icp] kernel D (icp_products) at {h}x{w} against {mc.height}x"
+          f"{mc.width}, {nb} blocks: {d_ms:.5f} ms in a replayed graph "
+          f"(eager {d_eager:.5f}), latched {d_dead:.5f}; plain "
+          f"{d_plain:.3f} ms; cuBLAS rows.T @ rows {lib_ms:.5f} ms; bound "
+          f"{d_bound:.5f} ms ({d_bytes} bytes; "
+          + ", ".join(f"{k} {v:.5f}" for k, v in d_terms.items())
+          + f"), launch floor {floors['launch_floor_ms']:.5f} ms")
+    print(f"[icp] kernel E (gn_update): {e_ms:.5f} ms in a replayed graph "
+          f"(eager {e_eager:.5f}; both less the two state copies that keep "
+          f"it live), latched {e_dead:.5f}; plain {e_plain:.3f} ms; bound "
+          f"{e_bound:.6f} ms ({e_bytes} bytes)")
+    print(f"[icp] a gauss_newton call ({its} iterations, "
+          f"{ic.max_iterations} trips of D and E): {gn_dev:.3f} ms (CUDA "
+          f"events), {gn_clock:.3f} ms host clock, {gn_reads:.2f} host "
+          f"reads; the host loop (gauss_newton_host): {host_dev:.3f} ms, "
+          f"{host_clock:.3f} ms host clock, {host_reads:.2f} host reads")
+    if gn_reads != 0:
+        raise AssertionError(f"gauss_newton read the host {gn_reads} times")
+    common = {"route": "cuda",
+              "source": "semantic_suma_tpu_torch/csrc/icp.cu",
+              "shape": "main", "bound_by": "bytes",
+              "gn_call_ms": gn_dev, "gn_host_loop_ms": host_dev}
+    rec_d = {"name": "icp_products",
+             "replaces": "semantic_suma_tpu/ops/icp.py:142",
+             "max_abs_err": max(v["d_abs"] for v in holds.values()),
+             "max_scaled_err": max(v["d_scaled"] for v in holds.values()),
+             "ms": d_ms, "eager_ms": d_eager, "dead_ms": d_dead,
+             "plain_ms": d_plain, "bound_ms": d_bound,
+             "library_ms": lib_ms, **common}
+    if d_bound != d_terms["bytes"]:
+        rec_d["bound_by"] = "operations"
+    rec_e = {"name": "gn_update",
+             "replaces": "semantic_suma_tpu/ops/icp.py:240",
+             "max_abs_err": max(v["e_pose"] for v in holds.values()),
+             "max_scaled_err": max(v["e_rel"] for v in holds.values()),
+             "ms": e_ms, "eager_ms": e_eager, "dead_ms": e_dead,
+             "plain_ms": e_plain, "bound_ms": e_bound, "library_ms": None,
+             **common}
+    return rec_d, rec_e
+
+
 def _device_profile(slam, scans, ms_per_scan, step=None):
     """Device time per scan by kernel name over ``scans`` more scans, from
     ``torch.profiler``; the idle share compares the device's busy time per
@@ -702,67 +956,65 @@ KNN_EARLIER_MS = 0.01351
 
 class _SyncTally:
     """The synchronizing CUDA operations of a run's timed steps, counted by
-    CUDA sync debug mode, beside its Gauss-Newton iterations
-    (``icp.gn_counts``), its track losses and its ``to_host`` reads (the
-    packed fetches the window waits for included). A step may
-    synchronize once a Gauss-Newton iteration and once for its branch flags,
-    twice on a scan whose fallback runs (core/pipeline.py)."""
+    CUDA sync debug mode over the whole step, beside its track losses, its
+    Gauss-Newton iterations (from the fetched per-scan statistics: nothing
+    reads them inside the loop) and its ``to_host`` reads (the packed
+    fetches the window waits for included). A step synchronizes once, for
+    its branch flags, twice on a scan whose fallback runs
+    (core/pipeline.py); its Gauss-Newton loops read nothing."""
 
     def __init__(self, slam):
         self.slam = slam
-        self.syncs = self.gn = self.losses = self.steps = self.reads = 0
-        self.fetches = 0
-        self.worst = 0  # most synchronizations outside Gauss-Newton a call
+        self.syncs = self.losses = self.steps = self.reads = 0
+        self.fetches = self.iterations = 0
+        self.worst = 0  # most synchronizations in one call beyond its flags
 
     def run(self, fn, steps: int):
         """Call ``fn`` (it runs ``steps`` steps and drains them) counted."""
         from semantic_suma_tpu_torch.device import to_host
-        from semantic_suma_tpu_torch.ops import icp
-        gn0, loss0 = icp.gn_counts["iterations"], self.slam.track_loss_count
+        loss0, stats0 = self.slam.track_loss_count, len(self.slam.statistics)
         reads0 = to_host.count
         waits = self.slam.stopwatch.stats["fetch-wait"]
         fetch0 = waits.count
         out = []
         n = len(_sync_warnings(lambda: out.append(fn())))
-        gn = icp.gn_counts["iterations"] - gn0
         losses = self.slam.track_loss_count - loss0
+        self.iterations += sum(st["icp-iterations"]
+                               for st in self.slam.statistics[stats0:])
         self.syncs += n
-        self.gn += gn
         self.losses += losses
         self.steps += steps
         self.reads += to_host.count - reads0
         self.fetches += waits.count - fetch0
-        self.worst = max(self.worst, n - gn - losses)
+        self.worst = max(self.worst, n - steps - losses)
         return out[0]
 
     def check(self, tag: str, per_call: bool) -> str:
         """Assert the bound (for each call with ``per_call``, else over the
         run) and return the line that reports the counts."""
-        outside = self.syncs - self.gn
-        line = (f"synchronizing operations (CUDA sync debug mode) "
-                f"{self.syncs / self.steps:.2f} a scan, Gauss-Newton "
-                f"iterations {self.gn / self.steps:.2f}, outside them "
-                f"{outside / self.steps:.3f} (track losses {self.losses}"
-                + (f", most in one scan {self.worst}" if per_call else "")
-                + f"); to_host reads {self.reads / self.steps:.2f} a scan, "
-                f"{(self.reads - self.gn - self.fetches) / self.steps:.3f} "
-                f"outside Gauss-Newton and the {self.fetches} fetches")
-        if (per_call and self.worst > 1) \
-                or outside > self.steps + self.losses \
-                or self.reads - self.gn - self.fetches \
-                > self.steps + self.losses:
-            raise AssertionError(f"{tag}: the steps synchronize outside "
-                                 f"Gauss-Newton beyond one flag read: {line}")
+        line = (f"synchronizing operations (CUDA sync debug mode, the whole "
+                f"step) {self.syncs / self.steps:.3f} a scan (track losses "
+                f"{self.losses}"
+                + (f", most beyond the flag reads in one call {self.worst}"
+                   if per_call else "")
+                + f"); Gauss-Newton iterations "
+                f"{self.iterations / self.steps:.2f} a scan (fetched "
+                f"statistics); to_host reads "
+                f"{self.reads / self.steps:.3f} a scan, "
+                f"{(self.reads - self.fetches) / self.steps:.3f} besides the "
+                f"{self.fetches} fetches")
+        if (per_call and self.worst > 0) \
+                or self.syncs > self.steps + self.losses \
+                or self.reads - self.fetches > self.steps + self.losses:
+            raise AssertionError(f"{tag}: the steps synchronize beyond one "
+                                 f"flag read a scan: {line}")
         return line
 
 
-def _flag_read_costs(slam, cfg, iterations: float) -> str:
-    """The branch flags' two designs on the last state of a run: computed
-    and read once after Gauss-Newton (the port's ``read_flags``, which
-    also orthonormalizes the pose on the host), against computed on every
-    Gauss-Newton iteration and read with its stopping test, which saves the
-    read and adds the flags' launches to every iteration (and would still
-    orthonormalize after the last). Host clock, 200 calls each after 5."""
+def _flag_read_cost(slam, cfg) -> str:
+    """The step's one read on the last state of a run: the branch flags
+    computed, and computed, read and the pose orthonormalized on the host
+    (``read_flags``). Host clock, 200 calls each after 5."""
     from semantic_suma_tpu_torch.core.pipeline import (jump_flag,
                                                        pose_and_refresh,
                                                        read_flags)
@@ -786,13 +1038,9 @@ def _flag_read_costs(slam, cfg, iterations: float) -> str:
 
     computed = per_call_ms(flags)
     read = per_call_ms(lambda: read_flags(*flags()))
-    on_stop = iterations * computed
-    kept = "the separate read" if read <= on_stop else "the stopping test"
-    return (f"branch flags: computed {computed:.4f} ms a call (host clock, "
-            f"back to back), computed, read and the pose orthonormalized "
-            f"{read:.4f} ms; on every stopping test ({iterations:.2f} "
-            f"iterations a scan) at least {on_stop:.4f} ms a scan against "
-            f"the separate read's {read:.4f}: {kept} is the cheaper")
+    return (f"branch flags (the step's one read): computed {computed:.4f} ms "
+            f"a call, computed, read and the pose orthonormalized "
+            f"{read:.4f} ms (host clock, back to back)")
 
 
 def phase_main_path(dev, profile_scans: int = 0):
@@ -861,7 +1109,7 @@ def phase_main_path(dev, profile_scans: int = 0):
     print(f"[main] aligned ATE {ate:.5f} m, peak device memory "
           f"{peak / 2**20:.1f} MiB")
     print(f"[main] {tally.check('main', True)}")
-    print(f"[main] {_flag_read_costs(slam, cfg, iters)}")
+    print(f"[main] {_flag_read_cost(slam, cfg)}")
     print(f"[main] launches: {launches}")
     if launches["bilateral_filter"] != n:
         raise AssertionError(f"bilateral ran {launches['bilateral_filter']} "
@@ -874,11 +1122,77 @@ def phase_main_path(dev, profile_scans: int = 0):
                              "scans")
     if slam.creations_dropped:
         raise AssertionError(f"{slam.creations_dropped} creations dropped")
-    if not ate <= 0.05:
-        raise AssertionError(f"ATE {ate} m > 0.05 m")
+    ref = _reference_ate()
+    print(f"[main] aligned ATE {ate:.5f} m against the JAX package's "
+          f"{ref:.5f} m on the same cell ({REFERENCE_FILE})")
+    if not ate <= ref:
+        raise AssertionError(f"ATE {ate} m above the reference's {ref} m")
     if profile_scans:
         _device_profile(slam, scans[n:], dt / n_timed * 1e3)
+    _kernel_vs_plain_per_scan(dev, cfg, scans[:n])
     return launches
+
+
+def _kernel_vs_plain_per_scan(dev, cfg, scans):
+    """Each scan of the cell stepped twice from the same state on the card:
+    with kernels D and E (``icp.gauss_newton``) and with their plain
+    versions on the same latch (``gauss_newton_latched`` with
+    ``icp_products_plain`` and ``gn_update_plain``); the run goes on from
+    the kernels' state. On every scan that neither run caps, the poses must
+    agree within 1e-4 m and 1e-5 rad (decided before the kernels' first
+    run); the iteration counts of both runs are printed."""
+    from semantic_suma_tpu_torch.core import pipeline
+    from semantic_suma_tpu_torch.ops import icp
+
+    slam = pipeline.SurfelSLAM(cfg, device=dev)  # its confidence schedule
+    state = pipeline.init_state(cfg, dev)
+    cap = cfg.icp.max_iterations
+    its_k, its_p, worst_t, worst_r, held = [], [], 0.0, 0.0, 0
+    kernel_gn = icp.gauss_newton
+    for i, s in enumerate(scans):
+        args = (s.points, s.labels, s.probs, s.valid, slam._conf_at(i), cfg)
+        copy = _to(state, dev)
+        icp.gauss_newton = _plain_gn
+        try:
+            _, pinfo = pipeline.odometry_step(copy, *args)
+        finally:
+            icp.gauss_newton = kernel_gn
+        state, kinfo = pipeline.odometry_step(state, *args)
+        ik, ip = int(kinfo.iterations), int(pinfo.iterations)
+        its_k.append(ik)
+        its_p.append(ip)
+        if ik >= cap or ip >= cap:
+            continue
+        pk, pp = kinfo.pose.double().cpu(), pinfo.pose.double().cpu()
+        dt = float((pk[:3, 3] - pp[:3, 3]).abs().max())
+        dr = _small_angle(torch.linalg.inv(pp) @ pk)
+        worst_t, worst_r = max(worst_t, dt), max(worst_r, dr)
+        held += 1
+        if not (dt <= 1e-4 and dr <= 1e-5):
+            raise AssertionError(f"scan {i}: kernels D and E against their "
+                                 f"plain versions from one state: {dt} m, "
+                                 f"{dr} rad ({ik} and {ip} iterations)")
+    print(f"[main] kernels D and E against their plain versions, each of "
+          f"{len(scans)} scans stepped from one state: {held} scans that "
+          f"neither capped agree within {worst_t:.3e} m and {worst_r:.3e} "
+          f"rad (limits 1e-4 m, 1e-5 rad); iterations equal on "
+          f"{sum(a == b for a, b in zip(its_k, its_p))} of {len(scans)}")
+    print(f"[main] iterations a scan, kernels: {its_k}")
+    print(f"[main] iterations a scan, plain:   {its_p}")
+
+
+# The JAX package's aligned ATE on the filtered main cell (the same scans,
+# the same SurfelSLAM driving): `python compare/filtered_main.py jax`,
+# recorded in this file. `[main]` and `[chunked]` hold the port to it.
+REFERENCE_FILE = "compare/filtered_main_jax.json"
+
+
+def _reference_ate() -> float:
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        REFERENCE_FILE)
+    with open(path) as f:
+        return float(json.loads(f.read())["ate_m"])
 
 
 # [chunked]: scans a dispatch, and the dispatches in flight of the chunked
@@ -972,6 +1286,7 @@ def phase_chunked(dev):
               f"{tally.check('chunked: ' + name, False)}")
     est = {k: v.trajectory() for k, v in runs.items()}
     count = {k: v.statistics[-1]["map-count"] for k, v in runs.items()}
+    ref = _reference_ate()
 
     def diff(a, b="per-step"):
         return float(np.abs(est[a][:, :3, 3] - est[b][:, :3, 3]).max())
@@ -991,10 +1306,14 @@ def phase_chunked(dev):
             raise AssertionError(f"chunked: {name}: non-finite poses")
         if slam.creations_dropped:
             raise AssertionError(f"chunked: {name}: creations dropped")
-        if not ates[name] <= 0.05:
-            raise AssertionError(f"chunked: {name}: ATE {ates[name]} m > "
-                                 "0.05 m")
+        if not ates[name] <= ref:
+            raise AssertionError(f"chunked: {name}: ATE {ates[name]} m above "
+                                 f"the reference's {ref} m")
     held = runs["chunked, held"]
+    if not held.syncs < runs["per-step"].syncs:
+        raise AssertionError(f"chunked: the depth-{CHUNK_DEPTH_HELD} run read "
+                             f"the host {held.syncs} times, the per-step run "
+                             f"{runs['per-step'].syncs}")
     if not diff("chunked, held") <= limit:
         raise AssertionError(f"chunked: poses {diff('chunked, held')} m "
                              f"off, limit {limit}")
@@ -1219,16 +1538,24 @@ def _scan_kind(new_stats, verify_dispatched: bool, gn_calls: int) -> str:
     return "cruising"
 
 
+def _gn_iterations_now():
+    """The card's count of Gauss-Newton iterations so far, a device tensor
+    (no read), or 0 before the first call."""
+    from semantic_suma_tpu_torch.ops.icp import gn_device_iterations
+    return sum(gn_device_iterations.values())
+
+
 def _loop_feeder(slam, rows):
     """``feed(scan) -> kind``: one ``process_scan_async`` call, with a row
     (kind, host reads, gauss_newton calls, iterations, seconds) appended to
-    ``rows``."""
+    ``rows``. The iterations are the difference of the card's counter
+    before and after, a device tensor that ``_print_call_types`` reads."""
     from semantic_suma_tpu_torch.device import to_host
     from semantic_suma_tpu_torch.ops.icp import gn_counts
 
     def feed(s):
-        before = (to_host.count, gn_counts["calls"], gn_counts["iterations"],
-                  len(slam.statistics),
+        before = (to_host.count, gn_counts["calls"],
+                  _gn_iterations_now(), len(slam.statistics),
                   slam.stopwatch.stats["verify-dispatch"].count)
         t0 = time.perf_counter()
         slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
@@ -1238,13 +1565,18 @@ def _loop_feeder(slam, rows):
             slam.statistics[before[3]:],
             slam.stopwatch.stats["verify-dispatch"].count > before[4], calls)
         rows.append((kind, to_host.count - before[0], calls,
-                     gn_counts["iterations"] - before[2], dt))
+                     _gn_iterations_now() - before[2], dt))
         return kind
 
     return feed
 
 
 def _print_call_types(label, part):
+    its = [r[3] for r in part]
+    if any(isinstance(x, torch.Tensor) for x in its):  # one read, here
+        its = torch.stack([torch.as_tensor(x, device="cuda").reshape(())
+                           .to(torch.int64) for x in its]).tolist()
+    part = [(r[0], r[1], r[2], n, r[4]) for r, n in zip(part, its)]
     for kind in ("cruising", "verifying", "searching"):
         sel = [r for r in part if r[0] == kind]
         if not sel:
@@ -1273,22 +1605,20 @@ def _count_solves(lc) -> dict:
 
 def _zero_launch_counts():
     from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
+    from semantic_suma_tpu_torch.ops.icp import gn_update, icp_products
     from semantic_suma_tpu_torch.ops.knn import knn_clean_image
     from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
     bilateral_filter.launches = 0
     zbuffer_cells.launches = 0
     zbuffer_cells.launches_by_shape = {}
     knn_clean_image.launches = 0
+    icp_products.launches = 0
+    gn_update.launches = 0
 
 
 def _read_launch_counts() -> dict:
-    from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
-    from semantic_suma_tpu_torch.ops.knn import knn_clean_image
-    from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
-    return {"bilateral_filter": bilateral_filter.launches,
-            "zbuffer_cells": zbuffer_cells.launches,
-            "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
-            "knn_clean_image": knn_clean_image.launches}
+    from semantic_suma_tpu_torch.cli import _launch_counts
+    return _launch_counts()
 
 
 def phase_loop(dev, floors, profile_scans: int = 0):
@@ -1411,6 +1741,12 @@ def phase_loop(dev, floors, profile_scans: int = 0):
           f"1e-3, 0.5% of the pixels)")
     if not (d_pose <= 1e-3 and d_inc <= 1e-3 and d_cnt <= 0.005 * cells):
         raise AssertionError("verify: card and CPU disagree")
+    # kernels D and E at the verify program's inputs: the scan against the
+    # old map rendered at the anchor
+    old_maps = sm.render_view(view, args[2], cfg.model, cfg.map, conf, vthr,
+                              "old")
+    real["icp-verify"] = _hold_icp("loop-verify", slam.last_maps, old_maps,
+                                   slam.last_increment, cfg)
 
     # past SMALL_GRAPH_POSES poses the closer solves on the card: finalize()
     # does so here, on the path
@@ -2725,11 +3061,13 @@ def _cli(argv):
 
 def _sum_launches(ranks) -> dict:
     """The ranks' launch counts summed, in ``_read_launch_counts``' form."""
-    out = {"bilateral_filter": 0, "zbuffer_cells": 0,
-           "zbuffer_cells_by_shape": {}, "knn_clean_image": 0}
+    singles = ("bilateral_filter", "zbuffer_cells", "knn_clean_image",
+               "icp_products", "gn_update")
+    out = {k: 0 for k in singles}
+    out["zbuffer_cells_by_shape"] = {}
     for r in ranks:
         c = r["launches"]
-        for k in ("bilateral_filter", "zbuffer_cells", "knn_clean_image"):
+        for k in singles:
             out[k] += c[k]
         for shape, n in c["zbuffer_cells_by_shape"].items():
             by = out["zbuffer_cells_by_shape"]
@@ -2881,7 +3219,8 @@ def phase_sharded_checkpoint(dev, td, full):
     resumed = np.asarray(cli.last_ranks[0]["poses"])
     more = _sum_launches(cli.last_ranks)
     counts["zbuffer_cells"] += more["zbuffer_cells"]
-    for k in ("bilateral_filter", "knn_clean_image"):
+    for k in ("bilateral_filter", "knn_clean_image", "icp_products",
+              "gn_update"):
         counts[k] += more[k]
     for shape, n in more["zbuffer_cells_by_shape"].items():
         by = counts["zbuffer_cells_by_shape"]
@@ -3205,6 +3544,7 @@ def main() -> int:
     recs_b = timed("zbuffer", phase_zbuffer, dev, floors)
     seg_image = timed("segmenter", phase_segmenter, dev)
     rec_c = timed("knn", phase_knn, dev, floors, seg_image)
+    rec_d, rec_e = timed("icp", phase_icp, dev, floors)
     timed("miou", phase_miou, dev)
     timed("parity", phase_parity, dev)
     paths = {"main": timed("main", phase_main_path, dev, args.profile_scans)}
@@ -3244,6 +3584,14 @@ def main() -> int:
                                  for k, v in paths.items()}
     rec_c["launches_by_path"] = {k: v["knn_clean_image"]
                                  for k, v in paths.items()}
+    for rec, key in ((rec_d, "icp_products"), (rec_e, "gn_update")):
+        rec["launches_by_path"] = {k: v[key] for k, v in paths.items()}
+    verify = real.pop("icp-verify")
+    rec_d["max_abs_err"] = max(rec_d["max_abs_err"], verify["d_abs"])
+    rec_d["max_scaled_err"] = max(rec_d["max_scaled_err"],
+                                  verify["d_scaled"])
+    rec_e["max_abs_err"] = max(rec_e["max_abs_err"], verify["e_pose"])
+    rec_e["max_scaled_err"] = max(rec_e["max_scaled_err"], verify["e_rel"])
     for rec in recs_b:
         shape = (rec["n"], rec["n_flags"])
         rec["launches_by_path"] = {
@@ -3251,7 +3599,7 @@ def main() -> int:
             for k, v in paths.items()}
         rec.update(real.get(rec["shape"], {}))
     on_path, off_path = [], []
-    for rec in (rec_a, *recs_b, rec_c):
+    for rec in (rec_a, *recs_b, rec_c, rec_d, rec_e):
         rec["launches"] = sum(rec["launches_by_path"].values())
         (on_path if rec["launches"] else off_path).append(rec)
     # a kernel of a path must have run on it; a shape that no path launches
@@ -3264,10 +3612,10 @@ def main() -> int:
         raise AssertionError(f"launched on no path: {never}; only the KITTI "
                              "scan and the two-stream render may be")
     keys = ("name", "shape", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "eager_ms",
-            "earlier_ms", "plain_ms",
+            "launches_by_path", "max_abs_err", "max_scaled_err", "ms",
+            "eager_ms", "dead_ms", "earlier_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "real_ms", "real_eager_ms",
-            "real_bound_ms")
+            "real_bound_ms", "gn_call_ms", "gn_host_loop_ms")
     print(json.dumps({"held_off_path": [{k: r[k] for k in keys if k in r}
                                         for r in off_path]}))
     print(_smi("name,power.limit"))

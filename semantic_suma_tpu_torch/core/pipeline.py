@@ -4,18 +4,17 @@ track-loss fallback -> map fusion -> model render, and the host loop with
 its loop-closure wiring.
 
 The JAX package compiles one device program per scan. Here the step runs
-eagerly and reads the host (``device.to_host``, counted in
-``StepInfo.syncs``) only for its branches: once per Gauss-Newton iteration
-(the stopping test), and once for its two branch flags, the track-loss jump
-and the view refresh, read together with the new pose's rotation, which the
-host orthonormalizes (once more on a scan whose fallback runs, at the
-recovered pose). The creation append and the counts stay on the device
-(``core/surfel_map``). ``SurfelSLAM`` drives the step and, when enabled, the
-loop-closure state machine and the host-RAM spill of the map arena
-(``core/spill``). With ``chunk_size=K`` and loop
-closure off, ``process_scan_async`` runs K scans per dispatch
-(``odometry_chunk_fetch``) and reads their K packed result rows with one
-fetch.
+eagerly; its Gauss-Newton loops read nothing (``ops/icp``'s latched loop),
+and it reads the host (``device.to_host``, counted in ``StepInfo.syncs``)
+once, for its two branch flags, the track-loss jump and the view refresh,
+read together with the new pose's rotation, which the host orthonormalizes
+(once more on a scan whose fallback runs, at the recovered pose). The
+creation append and the counts stay on the device (``core/surfel_map``).
+``SurfelSLAM`` drives the step and, when enabled, the loop-closure state
+machine and the host-RAM spill of the map arena (``core/spill``). With
+``chunk_size=K`` and loop closure off, ``process_scan_async`` runs K scans
+per dispatch (``odometry_chunk_fetch``) and reads their K packed result
+rows with one fetch.
 """
 
 from __future__ import annotations
@@ -55,7 +54,7 @@ class StepInfo(NamedTuple):
     pose: torch.Tensor
     increment: torch.Tensor
     stats: icp_ops.IcpStats
-    iterations: int
+    iterations: torch.Tensor      # int32 on the device (sharded: an int)
     track_loss: bool              # the fallback alignment ran
     n_created: torch.Tensor
     n_dropped: torch.Tensor       # creations lost to an exhausted arena
@@ -174,9 +173,9 @@ def odometry_step(state: SlamState, points: torch.Tensor,
                   point_valid: torch.Tensor, conf_threshold,
                   cfg: SumaConfig, timer: StageTimer | None = None):
     """Process one scan. Returns (new_state, StepInfo). The input state is
-    consumed: its map arena and pose table are updated in place. The host
-    reads of the step: one a Gauss-Newton iteration, and one for the branch
-    flags (two on a scan whose fallback runs)."""
+    consumed: its map arena and pose table are updated in place. The step
+    reads the host once, for the branch flags (twice on a scan whose
+    fallback runs)."""
     dev = state.pose.device
     reads0 = to_host.count
     ts = state.timestamp
@@ -243,9 +242,9 @@ def pack_results(pose, increment, stats: icp_ops.IcpStats, host_counts,
     the device. Layout: pose [0:16], increment [16:32], se3_log(increment)
     [32:38], then error, valid, inlier, outlier, inlier_residual, invalid,
     iterations, track_loss, n_created, n_dropped, map_count, block_count;
-    the counters are ``host_counts`` (numbers, written by fill kernels: an
-    upload from pageable memory would wait for the device) followed by
-    ``device_counts`` (device values or numbers). All counters fit f32
+    the counters are ``host_counts`` followed by ``device_counts``, each a
+    device value or a number (written by a fill kernel: an upload from
+    pageable memory would wait for the device). All counters fit f32
     exactly (< 2^24)."""
     dev = pose.device
     inc = increment.to(torch.float32)
@@ -386,7 +385,12 @@ class HostLoop:
     async_probe = True
     # compaction under pressure: when the live count nears the capacity (the
     # JAX package's single-device rule), or when the free rows fall under
-    # the headroom (its sharded rule)
+    # the headroom (its sharded rule). A session without spill always takes
+    # the second: compaction is its only reclaim, and the arena runs out of
+    # free blocks (dead rows and the eager fresh region count) while the
+    # live count still looks far from the capacity; with few scans in
+    # flight (after a rebase's flush) the first rule then let a scan's
+    # creations drop.
     compact_on_free_rows = False
 
     def __init__(self, cfg: SumaConfig, map_cfg, scan_rows: int, device,
@@ -612,7 +616,7 @@ class HostLoop:
                                                     + self.spill.chunk_blocks)
                     lap("host/spill-probe")
         compact = bool(n_dropped) or (
-            pressure if self.compact_on_free_rows
+            pressure if self.compact_on_free_rows or self.spill is None
             else info.map_count + (1 + lag) * rows > cap)
         if compact and not spilled:
             self._put_map(sm.compact(self._map, self.map_cfg))

@@ -1,28 +1,42 @@
-"""Frame-to-model projective ICP: weighted Jacobian rows, one [P,8]^T[P,8]
-product per linearization, and the Gauss-Newton loop (counterpart of
+"""Frame-to-model projective ICP: weighted Jacobian rows, their products
+per linearization, and the Gauss-Newton loop (counterpart of
 ``semantic_suma_tpu/ops/icp.py``).
 
-The JAX package runs the whole loop as one device ``while_loop``; here the
-loop is a Python loop with one host read per iteration (the stopping test,
-through ``device.to_host``). With a ``group`` (the sharded pipeline,
-``parallel/``), each rank linearizes its slice of the image rows and the
-products and statistics are summed over the ranks once per iteration, so
-every rank takes the same step and stops at the same iteration.
+The JAX package runs the whole loop as one device ``while_loop``. Here
+:func:`gauss_newton` launches one iteration ``max_iterations`` times with
+no host read, on a latch: kernel D (:func:`icp_products`,
+``csrc/icp.cu``) linearizes at the pose in device memory and writes each
+block's partial sums, kernel E (:func:`gn_update`) sums them, solves, runs
+the stop test, updates the pose and sets ``done``, after which both return
+at once. The state of the loop (:func:`gn_state`) lives in two small device
+tensors. On a CPU tensor the wrappers run the plain versions
+(:func:`icp_products_plain`, :func:`gn_update_plain`) on the same latch, and
+the loop ends at the latch (reading a CPU tensor waits for nothing).
+
+With a ``group`` (the sharded pipeline, ``parallel/``),
+:func:`gauss_newton_host` runs: each rank linearizes its slice of the image
+rows, the products and statistics are summed over the ranks once per
+iteration, and every rank reads the reduced stop (one host read an
+iteration), so that the ranks stay in lockstep.
 Twist convention ``x = [v, omega]``, increment applied on the left:
 ``pose <- exp(x) @ pose``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import DataConfig, IcpConfig
 from ..device import to_host
-from ..models.labels import is_movable
+from ..models.labels import _MOVABLE_MASK, is_movable
 from ..utils import lie
+from . import cuda_build
 from .projection import INV_PI
 
 _DEG = 180.0 / math.pi
@@ -55,7 +69,7 @@ class IcpStats(NamedTuple):
 class IcpResult(NamedTuple):
     pose: torch.Tensor        # [4,4] final increment estimate
     stats: IcpStats           # stats at the last evaluated linearization
-    iterations: int
+    iterations: torch.Tensor  # int32, on the device (gauss_newton_host: int)
 
 
 def _pack_model_image(model: Maps) -> torch.Tensor:
@@ -125,9 +139,10 @@ def _project_to_model(pts: torch.Tensor, model_cfg: DataConfig):
 
 
 def build_rows(pose: torch.Tensor, data: Maps, model: Maps, icp: IcpConfig,
-               model_cfg: DataConfig, iteration: int, semantic: bool = True,
+               model_cfg: DataConfig, iteration, semantic: bool = True,
                model_img: torch.Tensor | None = None):
-    """Weighted Jacobian rows A [P, 8] and the per-pixel stats. Row layout:
+    """Weighted Jacobian rows A [P, 8] and the per-pixel stats
+    (``iteration``: an int, or a 0-dim device tensor). Row layout:
     0:3 = sqrt(w) n_m, 3:6 = sqrt(w) (v_d x n_m), 6 = sqrt(w) r, 7 = 0; then
     A^T A[0:6,0:6] = J^T W J and A^T A[0:6,6] = J^T W f."""
     h, w = data.vertex.shape[:2]
@@ -168,9 +183,11 @@ def build_rows(pose: torch.Tensor, data: Maps, model: Maps, icp: IcpConfig,
     elif icp.weighting == "turkey":
         alpha = residual / icp.factor
         turkey = torch.square(1.0 - alpha * alpha)
-        weight = torch.where(absr > icp.factor, 0.0,
-                             turkey if iteration > 0
-                             else torch.ones_like(turkey))
+        if isinstance(iteration, torch.Tensor):  # a device counter: no read
+            turkey = torch.where(iteration > 0, turkey, 1.0)
+        elif iteration <= 0:
+            turkey = torch.ones_like(turkey)
+        weight = torch.where(absr > icp.factor, 0.0, turkey)
     else:
         weight = torch.ones_like(residual)
 
@@ -213,8 +230,23 @@ def jacobian_products(pose: torch.Tensor, data: Maps, model: Maps,
     return ata[:6, :6], ata[:6, 6], stats
 
 
-# calls of gauss_newton and the iterations they ran, since the process began
+# calls of gauss_newton and the iterations they ran, since the process
+# began: the host loop and the CPU count on the host; a card's latched loops
+# add to a device counter of that card (int64, by device name), which a
+# report reads where it needs it
 gn_counts = {"calls": 0, "iterations": 0}
+gn_device_iterations: dict = {}
+
+
+def _count_call(k) -> None:
+    gn_counts["calls"] += 1
+    if not isinstance(k, torch.Tensor) or k.device.type == "cpu":
+        gn_counts["iterations"] += int(k)
+        return
+    key = str(k.device)
+    prev = gn_device_iterations.get(key)
+    k64 = k.to(torch.int64)
+    gn_device_iterations[key] = k64 if prev is None else prev + k64
 
 
 def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -225,6 +257,259 @@ def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     chol, info = torch.linalg.cholesky_ex(a)
     x = torch.cholesky_solve(rhs[:, None], chol)[:, 0]
     return torch.where(info == 0, x, torch.nan)
+
+
+# --- the latched loop's state and its two steps (kernels D and E) ---------
+
+# One linearization's sums, a row per block of kernel D: the lower triangle
+# of A^T A[0:6, 0:6] by rows (21), A^T A[0:6, 6] (6), then error,
+# inlier_residual, valid, inlier, outlier, invalid (the counts as float32,
+# exact below 2^24).
+NPART = 33
+_NTRI = 21
+# state_f [20] float32: pose [0:16], last_err 16, error 17,
+# inlier_residual 18; state_i [8] int32: k 0, done 1, valid 2, inlier 3,
+# outlier 4, invalid 5 (csrc/icp.cu)
+_SF, _SI = 20, 8
+_THREADS = 256        # kernel D's block: one thread a data pixel
+_MAX_BLOCKS = 1024
+
+
+def gn_state(t0: torch.Tensor, k=0):
+    """The loop's device state ``(state_f, state_i)`` at pose ``t0``:
+    last_err +inf, iteration ``k``, not done, statistics 0. Fills and one
+    device copy: assigning a number to an element would upload it from
+    pageable memory, which waits for the device."""
+    dev = t0.device
+    state_f = torch.zeros(_SF, dtype=torch.float32, device=dev)
+    state_f[:16].copy_(t0.to(torch.float32).reshape(-1))
+    state_f[16:17].fill_(math.inf)
+    state_i = torch.zeros(_SI, dtype=torch.int32, device=dev)
+    state_i[0:1].fill_(k)
+    return state_f, state_i
+
+
+def gn_result(state_f: torch.Tensor, state_i: torch.Tensor) -> IcpResult:
+    """The loop's result as views of its state: the pose, the statistics of
+    the last live linearization and the iterations, on the device."""
+    return IcpResult(
+        pose=state_f[:16].view(4, 4),
+        stats=IcpStats(error=state_f[17], valid=state_i[2],
+                       inlier=state_i[3], outlier=state_i[4],
+                       inlier_residual=state_f[18], invalid=state_i[5]),
+        iterations=state_i[0])
+
+
+def _pack_products(ata: torch.Tensor, stats: IcpStats) -> torch.Tensor:
+    """``A^T A`` [8, 8] and the statistics -> one ``[1, NPART]`` row."""
+    il = torch.tril_indices(6, 6, device=ata.device)
+    counts = torch.stack([stats.valid, stats.inlier, stats.outlier,
+                          stats.invalid]).to(torch.float32)
+    return torch.cat([ata[il[0], il[1]], ata[:6, 6],
+                      torch.stack([stats.error, stats.inlier_residual]),
+                      counts])[None]
+
+
+def icp_products_plain(state_f: torch.Tensor, state_i: torch.Tensor,
+                       data: Maps, model_img: torch.Tensor, icp: IcpConfig,
+                       model_cfg: DataConfig, semantic: bool = True,
+                       out=None) -> torch.Tensor:
+    """Kernel D's plain version: :func:`build_rows` at the state's pose and
+    iteration and ``rows.T @ rows``, as one ``[1, NPART]`` row (``out`` is
+    not used)."""
+    rows, stats = build_rows(state_f[:16].view(4, 4), data, None, icp,
+                             model_cfg, state_i[0], semantic,
+                             model_img=model_img)
+    return _pack_products(rows.T @ rows, stats)
+
+
+def gn_update_plain(partials: torch.Tensor, state_f: torch.Tensor,
+                    state_i: torch.Tensor, icp: IcpConfig) -> None:
+    """Kernel E's plain version, in place on the state: the partial sums
+    summed over the blocks (in float64), the solve, the stop test and the
+    pose update of the JAX loop's body; nothing changes once ``done`` is
+    set."""
+    tot = partials.to(torch.float64).sum(0).to(torch.float32)
+    il = torch.tril_indices(6, 6, device=tot.device)
+    low = torch.zeros((6, 6), dtype=torch.float32, device=tot.device)
+    low[il[0], il[1]] = tot[:_NTRI]
+    jtj = low + torch.tril(low, -1).T
+    jtf = tot[_NTRI:_NTRI + 6]
+    err = tot[27]
+    counts = torch.round(tot[29:33]).to(torch.int32)
+    delta = _solve_spd(jtj, -jtf)
+    last_err = state_f[16]
+    finite = torch.all(torch.isfinite(delta))
+    stop = (torch.max(torch.abs(delta)) < icp.delta) \
+        | (torch.abs(torch.max(jtf)) < icp.stopping_threshold) \
+        | ((err < last_err)
+           & (torch.abs(err - last_err) < icp.stopping_threshold)) \
+        | ~finite
+    pose = state_f[:16].view(4, 4)
+    new_pose = lie.se3_exp(torch.nan_to_num(delta)) @ pose
+    new_f = torch.cat([torch.where(finite, new_pose, pose).reshape(-1),
+                       torch.stack([err, err, tot[28]]), state_f[19:]])
+    new_i = torch.cat([(state_i[0] + 1).reshape(1),
+                       stop.to(torch.int32).reshape(1), counts,
+                       state_i[6:]])
+    live = state_i[1] == 0
+    state_f.copy_(torch.where(live, new_f, state_f))
+    state_i.copy_(torch.where(live, new_i, state_i))
+
+
+def _lib():
+    lib = cuda_build.library("icp")
+    if lib.icp_products.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.icp_products.argtypes = ([p] * 10 + [i] * 7
+                                     + [ctypes.c_ulonglong] + [f] * 8 + [p])
+        lib.icp_products.restype = i
+        lib.gn_update.argtypes = [p, i, p, p, f, f, p]
+        lib.gn_update.restype = i
+    return lib
+
+
+def _blocks(p: int) -> int:
+    """Kernel D's grid for ``p`` data pixels (its rows of partial sums)."""
+    return max(1, min(_MAX_BLOCKS, -(-p // _THREADS)))
+
+
+@functools.lru_cache(maxsize=64)
+def _products_consts(icp: IcpConfig, model_cfg: DataConfig) -> tuple:
+    """Kernel D's scalar arguments after the partial sums' count: each float
+    rounded to float32 as the plain version's tensor ops round it on the
+    card (a tensor divided by a number is multiplied by its float32
+    reciprocal there)."""
+    if icp.weighting not in ("none", "huber", "turkey"):
+        raise ValueError(f"icp: unknown weighting {icp.weighting!r}")
+    if icp.sampling not in ("nearest", "bilinear"):
+        raise ValueError(f"icp: unknown sampling {icp.sampling!r}")
+    f32 = np.float32
+    return (("none", "huber", "turkey").index(icp.weighting),
+            int(icp.sampling == "bilinear"),
+            float(f32(model_cfg.fov_up)), float(f32(1.0) / f32(model_cfg.fov)),
+            float(f32(_DEG)), float(f32(INV_PI)),
+            float(f32(icp.max_distance)),
+            float(f32(math.cos(math.radians(icp.max_angle)))),
+            float(f32(icp.factor)), float(f32(1.0) / f32(icp.factor)))
+
+
+def _u8(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool \
+        else (t != 0).view(torch.uint8)
+
+
+def icp_products(state_f: torch.Tensor, state_i: torch.Tensor, data: Maps,
+                 model_img: torch.Tensor, icp: IcpConfig,
+                 model_cfg: DataConfig, semantic: bool = True,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """One linearization at the state's pose and iteration: the partial sums
+    ``[blocks, NPART]`` (``out`` if given). On a CPU tensor it runs
+    :func:`icp_products_plain` (one row); on a CUDA tensor it launches
+    kernel D or raises. Kernel D returns at once when the state is done."""
+    dev = state_f.device
+    if dev.type == "cpu":
+        return icp_products_plain(state_f, state_i, data, model_img, icp,
+                                  model_cfg, semantic)
+    if dev.type != "cuda":
+        raise ValueError(f"icp_products: unsupported device {dev}")
+    h, w = data.vertex.shape[:2]
+    p = h * w
+    mh, mw = model_cfg.height, model_cfg.width
+    if model_img.shape != (mh * mw, 8) or model_img.dtype != torch.float32 \
+            or not model_img.is_contiguous():
+        raise ValueError(f"icp_products: model image {tuple(model_img.shape)}"
+                         f" is not a contiguous float32 [{mh * mw}, 8]")
+    if state_f.shape != (_SF,) or state_i.shape != (_SI,) \
+            or state_f.dtype != torch.float32 or state_i.dtype != torch.int32:
+        raise ValueError("icp_products: not a gn_state")
+    tensors = (data.vertex, data.normal, data.vertex_valid, data.normal_valid,
+               data.sem_label, data.sem_prob, model_img, state_i)
+    if any(t.device != dev for t in tensors):
+        raise ValueError("icp_products: tensors on different devices")
+    vertex = data.vertex.to(torch.float32).contiguous()
+    normal = data.normal.to(torch.float32).contiguous()
+    label = data.sem_label.to(torch.int32).contiguous()
+    prob = data.sem_prob.to(torch.float32).contiguous()
+    vv, nv = _u8(data.vertex_valid), _u8(data.normal_valid)
+    nb = _blocks(p)
+    if out is None:
+        out = torch.empty((nb, NPART), dtype=torch.float32, device=dev)
+    elif out.shape != (nb, NPART) or out.device != dev:
+        raise ValueError("icp_products: out is not a [blocks, NPART] buffer")
+    weighting, bilinear, *floats = _products_consts(icp, model_cfg)
+    rc = _lib().icp_products(
+        vertex.data_ptr(), normal.data_ptr(), vv.data_ptr(), nv.data_ptr(),
+        label.data_ptr(), prob.data_ptr(), model_img.data_ptr(),
+        state_f.data_ptr(), state_i.data_ptr(), out.data_ptr(), p, mh, mw, nb,
+        weighting, bilinear, int(semantic), _MOVABLE_MASK, *floats,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "icp_products")
+    icp_products.launches += 1
+    return out
+
+
+icp_products.launches = 0
+
+
+def gn_update(partials: torch.Tensor, state_f: torch.Tensor,
+              state_i: torch.Tensor, icp: IcpConfig) -> None:
+    """Sum the partial sums, solve, test and update the state in place. On a
+    CPU tensor it runs :func:`gn_update_plain`; on a CUDA tensor it
+    launches kernel E or raises. Kernel E returns at once when the state is
+    done."""
+    dev = state_f.device
+    if dev.type == "cpu":
+        return gn_update_plain(partials, state_f, state_i, icp)
+    if dev.type != "cuda":
+        raise ValueError(f"gn_update: unsupported device {dev}")
+    if partials.dim() != 2 or partials.shape[1] != NPART \
+            or partials.dtype != torch.float32 \
+            or not partials.is_contiguous() or partials.device != dev \
+            or state_i.device != dev or state_f.shape != (_SF,) \
+            or state_i.shape != (_SI,):
+        raise ValueError("gn_update: expects float32 partials [blocks, "
+                         f"{NPART}] and a gn_state on one device")
+    rc = _lib().gn_update(partials.data_ptr(), partials.shape[0],
+                          state_f.data_ptr(), state_i.data_ptr(),
+                          icp.delta, icp.stopping_threshold,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "gn_update")
+    gn_update.launches += 1
+
+
+gn_update.launches = 0
+
+
+def gauss_newton_latched(data: Maps, model: Maps, t0: torch.Tensor,
+                         icp: IcpConfig, model_cfg: DataConfig,
+                         semantic: bool = True,
+                         max_iterations: int | None = None,
+                         early_exit: bool = True, products=None,
+                         update=None) -> IcpResult:
+    """The latched loop: ``max_iterations`` trips of ``products`` then
+    ``update`` on one :func:`gn_state` (default :func:`icp_products` and
+    :func:`gn_update`, kernels D and E on a card; the plain versions may be
+    passed to hold the loop against them there). No trip reads the host. On
+    the CPU, ``early_exit`` ends the loop at the latch, which changes no
+    value. Returns :func:`gn_result` of the state."""
+    max_iter = icp.max_iterations if max_iterations is None else max_iterations
+    products = icp_products if products is None else products
+    update = gn_update if update is None else update
+    model_img = _pack_model_image(model)
+    state_f, state_i = gn_state(t0)
+    stop_early = early_exit and state_f.device.type == "cpu"
+    buf = None
+    for _ in range(max_iter):
+        buf = products(state_f, state_i, data, model_img, icp, model_cfg,
+                       semantic, out=buf)
+        update(buf, state_f, state_i, icp)
+        if stop_early and bool(state_i[1]):
+            break
+    result = gn_result(state_f, state_i)
+    _count_call(result.iterations)
+    return result
 
 
 def _sum_over(group, ata: torch.Tensor, stats: IcpStats):
@@ -242,17 +527,38 @@ def _sum_over(group, ata: torch.Tensor, stats: IcpStats):
 def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
                  model_cfg: DataConfig, semantic: bool = True,
                  max_iterations: int | None = None,
-                 group=None) -> IcpResult:
+                 group=None, early_exit: bool = True) -> IcpResult:
     """Gauss-Newton alignment. Stops on a minimal step (||delta||_inf <
     delta), a vanishing gradient, a converged error change, or a non-finite
     step, checked after applying the increment; at most ``max_iterations``
-    (default ``icp.max_iterations``) linearizations. ``gn_counts`` counts the
-    calls and their iterations for the run reports.
+    (default ``icp.max_iterations``) linearizations. Without ``group`` it
+    is :func:`gauss_newton_latched`: no host read, ``iterations`` a device
+    int32. ``gn_counts`` counts the calls and their iterations for the run
+    reports.
 
     ``group`` (a ``parallel.distributed.Group``): ``data`` holds this rank's
-    rows only; ``A^T A`` and the statistics are summed over the ranks before
-    the solve and the stopping test (the JAX package's ``psum`` over
-    ``axis``)."""
+    rows only, and :func:`gauss_newton_host` sums ``A^T A`` and the
+    statistics over the ranks before the solve and the stopping test (the
+    JAX package's ``psum`` over ``axis``)."""
+    if group is not None:
+        return gauss_newton_host(data, model, t0, icp, model_cfg, semantic,
+                                 max_iterations, group)
+    return gauss_newton_latched(data, model, t0, icp, model_cfg, semantic,
+                                max_iterations, early_exit)
+
+
+def gauss_newton_host(data: Maps, model: Maps, t0: torch.Tensor,
+                      icp: IcpConfig, model_cfg: DataConfig,
+                      semantic: bool = True,
+                      max_iterations: int | None = None,
+                      group=None) -> IcpResult:
+    """The loop on the host: each iteration builds the rows
+    (:func:`build_rows`), reduces them with ``rows.T @ rows`` (summed over
+    ``group``'s ranks), solves (:func:`_solve_spd`) and reads its stopping
+    test to the host (one ``to_host`` an iteration). The sharded pipeline
+    runs it, since every rank must read the reduced stop to stay in
+    lockstep, and so does ``tools/gn_trace``, which records each
+    iteration. ``iterations`` is a Python int."""
     max_iter = icp.max_iterations if max_iterations is None else max_iterations
     model_img = _pack_model_image(model)
     pose = t0.to(torch.float32)
@@ -283,8 +589,7 @@ def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
         last_err = err
         k += 1
         done = to_host(stop)
-    gn_counts["calls"] += 1
-    gn_counts["iterations"] += k
+    _count_call(k)
     return IcpResult(pose=pose, stats=stats, iterations=k)
 
 

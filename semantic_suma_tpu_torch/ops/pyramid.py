@@ -73,8 +73,8 @@ def gauss_newton_pyramid(data: Maps, model: Maps, t0: torch.Tensor,
                          ) -> IcpResult:
     """Coarse-to-fine projective ICP: solve at ``W / 2^(levels-1)`` first and
     feed the estimate down. Returns the finest level's pose and stats, the
-    iteration counts summed over levels. The association gates are the same
-    at every level."""
+    iteration counts summed over levels on the device (no host read). The
+    association gates are the same at every level."""
     if level_iterations is None:
         level_iterations = DEFAULT_LEVEL_ITERATIONS
     data_pyr = build_pyramid(data, levels)

@@ -13,6 +13,11 @@ iterations repeats the step p iterations earlier to within 5% of the largest
 of them, 0 when there is none up to 6. ``--filter plain`` runs the
 plain PyTorch bilateral filter in the kernel's place. The recording keeps
 device tensors and reads them after each scan, so it changes no value.
+
+To see every iteration, the trace keeps the host loop: each alignment runs
+``icp.gauss_newton_host`` (``build_rows``, ``rows.T @ rows``, the solve and
+one host read an iteration), not the latched loop of kernels D and E that
+the odometry step runs on a card, so its sums round in another order.
 """
 
 from __future__ import annotations
@@ -33,9 +38,10 @@ from ..utils.metrics import ate_rmse
 
 
 class _Recorder:
-    """Wraps ``icp.gauss_newton`` and the two functions each of its
-    iterations calls, and keeps what they saw of a scan's first loop (a
-    second one is the recovery after a track loss)."""
+    """Routes ``icp.gauss_newton`` to ``icp.gauss_newton_host``, wraps the
+    two functions each of its iterations calls, and keeps what they saw of
+    a scan's first loop (a second one is the recovery after a track
+    loss)."""
 
     def __init__(self):
         self.iterations: list = []
@@ -50,7 +56,7 @@ class _Recorder:
 
     def gauss_newton(self, *args, **kwargs):
         self.loops += 1
-        return self._wrapped[0](*args, **kwargs)
+        return icp.gauss_newton_host(*args, **kwargs)
 
     def build_rows(self, *args, **kwargs):
         rows, stats = self._wrapped[1](*args, **kwargs)

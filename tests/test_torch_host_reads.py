@@ -1,5 +1,5 @@
-"""The port's odometry step reads the host only in its Gauss-Newton loops and
-once for its branch flags, and still takes JAX's branches.
+"""The port's odometry step reads the host once, for its branch flags (its
+Gauss-Newton loops read nothing), and still takes JAX's branches.
 
 Four kinds of steps start from one mid-run JAX state (``SumaConfig().small()``,
 scans of the JAX simulator), each converted with
@@ -18,8 +18,8 @@ Each step against JAX's ``odometry_step``: the pose within 1e-3 m and 1e-3
 rad (``test_odometry_step_matches_jax_per_scan``'s limits), the iterations,
 ``track_loss``, ``n_created``, ``n_dropped``, ``map_count``,
 ``active_count`` and ``active_blocks`` exactly. Its host reads
-(``StepInfo.syncs``) less the Gauss-Newton iterations of its calls
-(``icp.gn_counts``) are at most 1, 2 where the fallback runs.
+(``StepInfo.syncs``, every ``to_host`` of the step) are exactly 1, 2 where
+the fallback runs.
 
 The masked block write under the refresh and ``sync`` (``_put_rows``) is
 held to boolean-mask indexing, and the flag read (``read_flags``) to one
@@ -42,7 +42,6 @@ from semantic_suma_tpu_torch.convert import slam_state_from_numpy
 from semantic_suma_tpu_torch.core import pipeline as tp
 from semantic_suma_tpu_torch.core import surfel_map as tsm
 from semantic_suma_tpu_torch.device import to_host
-from semantic_suma_tpu_torch.ops import icp as ticp
 from semantic_suma_tpu_torch.utils import lie as tlie
 
 BASE = 5          # JAX steps before the state the four kinds start from
@@ -102,7 +101,6 @@ def _compute(_):
         j2, ji = step(start, s.points, s.labels, s.probs, s.valid, ct, jcfg)
         state = slam_state_from_numpy(start, "cpu")
         anchor0 = state.map.anchor.clone()
-        gn0 = ticp.gn_counts["iterations"]
         t2, ti = tp.odometry_step(state, *inputs, ct, cfg)
         out[kind] = {
             "jax": {"pose": np.asarray(ji.pose),
@@ -115,7 +113,8 @@ def _compute(_):
                     "active_blocks": np.asarray(j2.map.active_blocks),
                     "refreshed": not np.array_equal(
                         np.asarray(j2.map.anchor), start.map.anchor)},
-            "port": {"pose": ti.pose.numpy(), "iterations": ti.iterations,
+            "port": {"pose": ti.pose.numpy(),
+                     "iterations": int(ti.iterations),
                      "track_loss": ti.track_loss,
                      "n_created": int(ti.n_created),
                      "n_dropped": int(ti.n_dropped),
@@ -124,7 +123,6 @@ def _compute(_):
                      "active_blocks": t2.map.active_blocks.numpy(),
                      "refreshed": not torch.equal(t2.map.anchor, anchor0)},
             "syncs": ti.syncs,
-            "gn_iterations": ticp.gn_counts["iterations"] - gn0,
         }
     return out
 
@@ -155,11 +153,9 @@ def test_step_kind_matches_jax_with_one_flag_read(steps, kind):
         assert t[name] == j[name], (name, t[name], j[name])
     np.testing.assert_array_equal(t["active_blocks"], j["active_blocks"])
 
-    # host reads outside Gauss-Newton: the one flag read, and on a fallback
-    # scan the refresh flag at the recovered pose
-    outside = r["syncs"] - r["gn_iterations"]
-    assert 0 <= outside <= (2 if kind == "fallback" else 1), (
-        r["syncs"], r["gn_iterations"])
+    # the step's host reads: the one flag read, and on a fallback scan the
+    # refresh flag at the recovered pose; the Gauss-Newton loops read none
+    assert r["syncs"] == (2 if kind == "fallback" else 1), r["syncs"]
 
 
 def test_put_rows_writes_only_live_rows():

@@ -75,4 +75,4 @@ def test_gauss_newton_matches_jax(maps):
     np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose),
                                atol=1e-5)
     assert rt.iterations == int(rj.iterations)
-    assert to_host.count - reads0 == rt.iterations  # one read per iteration
+    assert to_host.count - reads0 == 0  # the latched loop reads nothing

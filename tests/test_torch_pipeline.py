@@ -16,6 +16,10 @@ bilateral filter on.
   only on the final map count, within 0.5%.
 * ``SurfelSLAM`` builds a spill manager, a loop closer and a chunking
   session when asked, and refuses a missing GPU.
+* A session without spill compacts when the arena's free rows fall under
+  the headroom, even where the live count is far from the capacity (the
+  JAX package's single-device rule would wait; its sharded rule is this
+  one); a session with spill keeps the single-device rule.
 """
 import dataclasses
 
@@ -236,3 +240,28 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked():
         tp.init_state(cfg)
     slam = tp.SurfelSLAM(cfg, device="cpu")
     assert slam.state.pose.device.type == "cpu"
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_session_without_spill_compacts_on_free_rows(spill):
+    """A drained scan whose counters say: 0 live rows, every block but one
+    scan's rows allocated (dead rows and the fresh region), nothing
+    dropped."""
+    cfg = SumaConfig(map=MapConfig(spill_enabled=spill),
+                     loop=LoopClosureConfig(enabled=False)).small()
+    slam = tp.SurfelSLAM(cfg, device="cpu")
+    rows = cfg.data.height * cfg.data.width
+    bs = cfg.map.effective_block_size
+    vec = np.zeros(50, np.float32)
+    vec[0:16] = vec[16:32] = np.eye(4, dtype=np.float32).reshape(-1)
+    tail = vec[32:]
+    tail[12] = 3                                                # iterations
+    tail[16] = 0                                                # map_count
+    tail[17] = (cfg.map.surfel_capacity - rows) // bs           # block_count
+    version0 = slam.map_version
+    slam._finish_host(vec, 0.0)
+    assert slam.creations_dropped == 0
+    if spill:  # the live count is far from the capacity: no compaction
+        assert slam.map_version == version0
+    else:
+        assert slam.map_version == version0 + 1
