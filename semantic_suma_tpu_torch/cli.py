@@ -384,7 +384,7 @@ last_ranks: list = []
 
 def _launch_counts() -> dict:
     from .ops.bilateral import bilateral_filter
-    from .ops.icp import gn_update, icp_products
+    from .ops.icp import gn_loop, gn_update, icp_products
     from .ops.knn import knn_clean_image
     from .ops.zbuffer import zbuffer_cells
     return {"bilateral_filter": bilateral_filter.launches,
@@ -392,7 +392,8 @@ def _launch_counts() -> dict:
             "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
             "knn_clean_image": knn_clean_image.launches,
             "icp_products": icp_products.launches,
-            "gn_update": gn_update.launches}
+            "gn_update": gn_update.launches,
+            "gn_loop": gn_loop.launches}
 
 
 def _run_sharded(args, device, backend=None) -> int:

@@ -1,5 +1,6 @@
-// Kernels D and E: one Gauss-Newton iteration of frame-to-model projective
-// ICP, launched max_iterations times by ops/icp.py with no host read.
+// Kernels D, E and F: frame-to-model projective ICP's Gauss-Newton loop
+// (ops/icp.py). F runs a whole gauss_newton call in one launch; D and E are
+// one iteration's two halves, held against F bit for bit.
 //
 // Replace the body of the JAX package's gauss_newton while_loop
 // (semantic_suma_tpu/ops/icp.py:251-309): build_rows (:142), the
@@ -21,41 +22,67 @@
 // sums: no float atomics, so that two runs of the same scans give the same
 // bits. The per-pixel arithmetic repeats the plain PyTorch version's
 // operations one rounding at a time (the _rn intrinsics, which nvcc does
-// not contract into FMAs), so that the projection's truncation, the
-// sample and the gates, which decide the integer counters, see the values
-// the plain version sees on the card.
+// not contract into FMAs, and fmaf where the plain version's kernels fuse),
+// so that the projection's truncation, the sample and the gates, which
+// decide the integer counters, see the values the plain version sees on
+// the card.
 // E (gn_update_kernel): one block. It sums the partials in a fixed order
 // (lane-strided in double, then a fixed shuffle tree), solves the 6x6
 // system by Cholesky with _solve_spd's Tikhonov floor (NaN where the
 // factorization fails, as the JAX Cholesky gives), runs the stop test,
 // applies se3_exp(delta) @ pose (the old pose on a non-finite step), and
 // writes the pose, last_err, the statistics, k + 1 and the latch `done`.
-// E is a kernel of its own rather than D's last block: it keeps D free of
-// a grid-wide counter and fence, and it is held against its plain version
-// on its own.
-// Both return at once when `done` is set, so the loop launches them a
-// fixed number of times and the pose, the statistics and k stay those of
-// the last live iteration, as in the JAX while_loop.
+// Both return at once when `done` is set.
+//
+// F (gn_loop_kernel): the whole loop in one cooperative launch, as the
+// reference's while_loop is one device program. Its blocks take the place
+// of the devices of the reference's psum over `axis` (:262-267): each
+// iteration every block writes the partial sums of its slots (D's
+// partition: slot s is D's block s, so every partial has D's bits), one
+// grid barrier stands for the psum, and then every block sums all the
+// slots in E's order and runs E's solve and update itself on a copy of the
+// state in its shared memory. All blocks hold the same state bit for bit,
+// take the same stop decision and leave the loop together; block 0 writes
+// the state back. The partials go to a ping-pong buffer [2, 33, slots]
+// (a column's slots side by side, so that a warp's loads of them
+// coalesce): a block can write iteration t + 2's half only after the
+// barrier of t + 1, which waits for every block to finish reading
+// iteration t's, so one barrier an iteration is enough. E's solve is one
+// __noinline__ function that E and F both call, D's slot sum and E's sum
+// one inlined function each, so that the two routes compile the same
+// arithmetic. An iteration at 64x900 takes ~8.9 us on an H100 80GB HBM3 at
+// 700 W (tools/gn_loop_designs.py; PERF.md): the barrier ~1.2, the slot
+// work ~3.4, every block's sum of the 225 x 33 partials under 0.1 and the
+// one thread's solve ~4.3 us. Block 0 solving alone behind a second
+// barrier took ~9.1 us; slot-major partials read one load at a time a
+// lane, ~28 us.
 //
 // Bound on an H100: the bytes, far under the launch floor. A live D reads
 // per data pixel its vertex and normal (24 B), two valid bytes, label and
 // probability (8 B) and one (nearest) or four (bilinear) 32-byte model
 // rows: ~66 B a pixel, ~3.8 MB at 64x900, ~1.1 us at 3.35 TB/s; E reads
-// 33 floats a block. What holds them is latency: a launch each, and D's
-// dependent chain (pose, transform, projection, model gather, reduction).
+// 33 floats a block. What holds them is latency: D's dependent chain
+// (pose, transform, projection, model gather, reduction) and, for D and E,
+// a launch each; F pays one launch a call and one grid barrier an
+// iteration.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int NPART = 33;     // partial sums a block (ops/icp.py NPART)
 constexpr int NTRI = 21;      // lower triangle of the 6x6 J^T W J
-constexpr int THREADS = 256;  // D: one thread a pixel; E: one block
+constexpr int THREADS = 256;  // D, F: one thread a pixel; E: one block
 constexpr int WARPS = THREADS / 32;
 // state_f: pose [0:16], last_err 16, error 17, inlier_residual 18
+constexpr int SF = 20, SF_LAST = 16, SF_ERR = 17, SF_INRES = 18;
 // state_i: k 0, done 1, valid 2, inlier 3, outlier 4, invalid 5
+constexpr int SI = 8, SI_K = 0, SI_DONE = 1, SI_COUNTS = 2;
 
 struct DParams {
   const float* vertex;   // [P, 3]
@@ -65,9 +92,9 @@ struct DParams {
   const int* label;      // [P]
   const float* prob;     // [P]
   const float4* model;   // [MH * MW, 8] as float4 pairs
-  const float* state_f;
-  const int* state_i;
-  float* partials;       // [gridDim.x, NPART]
+  const float* state_f;  // D only
+  const int* state_i;    // D only
+  float* partials;       // D: [gridDim.x, NPART]; F: [2, NPART, slots]
   int p, mh, mw;
   int weighting;         // 0 none, 1 huber, 2 turkey
   int bilinear, semantic;
@@ -211,9 +238,11 @@ __device__ __forceinline__ void pixel(const DParams& q, int i,
                                : 1.0f;
     weight = mul(weight, semw);
   }
-  const float cp[3] = {
-      vd[1] * nm[2] - vd[2] * nm[1], vd[2] * nm[0] - vd[0] * nm[2],
-      vd[0] * nm[1] - vd[1] * nm[0]};
+  // a*b - c*d as nvcc contracts it, written out so that D and F cannot
+  // contract it differently
+  const float cp[3] = {fmaf(vd[1], nm[2], -mul(vd[2], nm[1])),
+                       fmaf(vd[2], nm[0], -mul(vd[0], nm[2])),
+                       fmaf(vd[0], nm[1], -mul(vd[1], nm[0]))};
   const float sw = sqrtf(fmaxf(weight, 0.0f));
   const float m = inlier ? 1.0f : 0.0f;
   const float row[7] = {
@@ -237,36 +266,47 @@ __device__ __forceinline__ void pixel(const DParams& q, int i,
   acc[32] += (dvalid && !assoc) ? 1.0f : 0.0f;
 }
 
-__global__ void __launch_bounds__(THREADS)
-icp_products_kernel(const DParams q) {
-  if (q.state_i[1]) return;  // latched: the loop has stopped
-  __shared__ float pose[16];
-  __shared__ float warp_sums[WARPS][NPART];
-  if (threadIdx.x < 16) pose[threadIdx.x] = q.state_f[threadIdx.x];
-  __syncthreads();
-  const int k = q.state_i[0];
+// Slot s of `nslots` (the pixels s * THREADS + tid, stepping by nslots *
+// THREADS) at `pose` (shared memory) and iteration k: its NPART sums, by
+// warp shuffles and then the warps in order, to out[j * stride]. Every
+// thread of the block calls it; the caller syncs before `warp_sums` is
+// reused.
+__device__ __forceinline__ void slot_sums(const DParams& q, int s,
+                                          int nslots, const float* pose,
+                                          int k, float (*warp_sums)[NPART],
+                                          float* out, int stride) {
   float acc[NPART];
 #pragma unroll
   for (int j = 0; j < NPART; ++j) acc[j] = 0.0f;
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < q.p;
-       i += gridDim.x * THREADS)
+  for (int i = s * THREADS + threadIdx.x; i < q.p; i += nslots * THREADS)
     pixel(q, i, pose, k, acc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < NPART; ++j) {
-    float s = acc[j];
+    float v = acc[j];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) warp_sums[warp][j] = s;
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sums[warp][j] = v;
   }
   __syncthreads();
   if (threadIdx.x < NPART) {
-    float s = warp_sums[0][threadIdx.x];
+    float v = warp_sums[0][threadIdx.x];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) s += warp_sums[w][threadIdx.x];
-    q.partials[blockIdx.x * NPART + threadIdx.x] = s;
+    for (int w = 1; w < WARPS; ++w) v += warp_sums[w][threadIdx.x];
+    out[threadIdx.x * stride] = v;
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+icp_products_kernel(const DParams q) {
+  if (q.state_i[SI_DONE]) return;  // latched: the loop has stopped
+  __shared__ float pose[16];
+  __shared__ float warp_sums[WARPS][NPART];
+  if (threadIdx.x < 16) pose[threadIdx.x] = q.state_f[threadIdx.x];
+  __syncthreads();
+  slot_sums(q, blockIdx.x, gridDim.x, pose, q.state_i[SI_K], warp_sums,
+            q.partials + blockIdx.x * NPART, 1);
 }
 
 // lie.se3_exp of a twist [v, omega] as a 4x4 (row-major, last row 0 0 0 1)
@@ -299,24 +339,58 @@ __device__ void se3_exp(const float x[6], float out[16]) {
   out[15] = 1.0f;
 }
 
-__global__ void __launch_bounds__(THREADS)
-gn_update_kernel(const float* __restrict__ partials, int nblocks,
-                 float* __restrict__ sf, int* __restrict__ si,
-                 float delta_thr, float stop_thr) {
-  if (si[1]) return;  // latched
-  __shared__ double sums[NPART];
+// The slots' sums in E's fixed order, the sum of slot b's column c at
+// partials[b * sb + c * sc]: warp w takes the columns w, w + WARPS, ...;
+// for each, lane l adds the slots l, l + 32, ... in double in that order,
+// then a shuffle tree. The loads of a lane's columns and 8 of its slots are
+// issued before their adds, which keep the order. Every thread of the block
+// calls it. Loads through L2 (ld.global.cg): in F other blocks wrote the
+// sums in this launch, so neither the read-only path nor a stale L1 line
+// may serve them.
+__device__ __forceinline__ void sum_partials(const float* partials,
+                                             int nslots, int sb, int sc,
+                                             double* sums) {
+  constexpr int COLS = (NPART + WARPS - 1) / WARPS;
+  constexpr int UNROLL = 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = warp; c < NPART; c += WARPS) {
-    double s = 0.0;
-    for (int b = lane; b < nblocks; b += 32) s += (double)partials[b * NPART + c];
+  double s[COLS];
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) s[j] = 0.0;
+  for (int b0 = lane; b0 < nslots; b0 += 32 * UNROLL) {
+    float v[COLS][UNROLL];
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int c = warp + j * WARPS;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int b = b0 + 32 * u;
+        v[j][u] = c < NPART && b < nslots
+                      ? __ldcg(partials + b * sb + c * sc) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < COLS; ++j)
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (b0 + 32 * u < nslots) s[j] += (double)v[j][u];
+  }
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    double t = s[j];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) sums[c] = s;
+      t += __shfl_down_sync(0xffffffffu, t, off);
+    const int c = warp + j * WARPS;
+    if (lane == 0 && c < NPART) sums[c] = t;
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
+}
 
+// E's one thread: the solve, the stop test and the update of the state
+// (sf, si: global memory in E, a block's shared copy in F) from the summed
+// partials. Not inlined, so that E and F run the same instructions.
+__device__ __noinline__ void gn_step(const double* sums, float* sf, int* si,
+                                     float delta_thr, float stop_thr) {
   float a[6][6], jtf[6];
   int t = 0;
   for (int i = 0; i < 6; ++i)
@@ -370,7 +444,7 @@ gn_update_kernel(const float* __restrict__ partials, int nblocks,
     maxabs = fmaxf(maxabs, fabsf(delta[i]));
     maxjtf = fmaxf(maxjtf, jtf[i]);
   }
-  const float last = sf[16];
+  const float last = sf[SF_LAST];
   const bool stop = !finite || maxabs < delta_thr
                     || fabsf(maxjtf) < stop_thr
                     || (err < last && fabsf(err - last) < stop_thr);
@@ -385,26 +459,63 @@ gn_update_kernel(const float* __restrict__ partials, int nblocks,
         sf[4 * i + j] = s;
       }
   }
-  sf[16] = err;
-  sf[17] = err;
-  sf[18] = inres;
-  si[0] += 1;
-  si[1] = stop ? 1 : 0;
-  for (int c = 0; c < 4; ++c) si[2 + c] = (int)llrint(sums[29 + c]);
+  sf[SF_LAST] = err;
+  sf[SF_ERR] = err;
+  sf[SF_INRES] = inres;
+  si[SI_K] += 1;
+  si[SI_DONE] = stop ? 1 : 0;
+  for (int c = 0; c < 4; ++c) si[SI_COUNTS + c] = (int)llrint(sums[29 + c]);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(THREADS)
+gn_update_kernel(const float* partials, int nblocks, float* sf, int* si,
+                 float delta_thr, float stop_thr) {
+  if (si[SI_DONE]) return;  // latched
+  __shared__ double sums[NPART];
+  sum_partials(partials, nblocks, NPART, 1, sums);
+  if (threadIdx.x == 0) gn_step(sums, sf, si, delta_thr, stop_thr);
+}
 
-// Kernel D on `stream`: `nblocks` blocks of 256 threads over `p` data
-// pixels; returns cudaGetLastError() after the launch.
-extern "C" int icp_products(
-    const void* vertex, const void* normal, const void* vvalid,
-    const void* nvalid, const void* label, const void* prob,
-    const void* model, const void* state_f, const void* state_i,
-    void* partials, int p, int mh, int mw, int nblocks, int weighting,
-    int bilinear, int semantic, unsigned long long movable, float fov_up,
-    float inv_fov, float deg, float inv_pi, float max_dist, float angle_thr,
-    float factor, float inv_factor, void* stream) {
+// F: up to max_iter iterations from the state, ending at the stop test.
+// Block b takes the slots b, b + gridDim.x, ...; launched cooperatively
+// with gridDim.x <= nslots blocks, all resident at once.
+__global__ void __launch_bounds__(THREADS, 2)
+gn_loop_kernel(const DParams q, int nslots, int max_iter, float* state_f,
+               int* state_i, float delta_thr, float stop_thr) {
+  __shared__ float sf[SF];
+  __shared__ int si[SI];
+  __shared__ float warp_sums[WARPS][NPART];
+  __shared__ double sums[NPART];
+  cg::grid_group grid = cg::this_grid();
+  if (threadIdx.x < SF) sf[threadIdx.x] = state_f[threadIdx.x];
+  if (threadIdx.x < SI) si[threadIdx.x] = state_i[threadIdx.x];
+  __syncthreads();
+  for (int t = 0; t < max_iter && !si[SI_DONE]; ++t) {
+    float* half = q.partials + (size_t)(t & 1) * nslots * NPART;
+    const int k = si[SI_K];
+    for (int s = blockIdx.x; s < nslots; s += gridDim.x) {
+      slot_sums(q, s, nslots, sf, k, warp_sums, half + s, nslots);
+      __syncthreads();
+    }
+    grid.sync();  // every slot written: the reference's psum
+    sum_partials(half, nslots, 1, nslots, sums);
+    if (threadIdx.x == 0) gn_step(sums, sf, si, delta_thr, stop_thr);
+    __syncthreads();
+  }
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < SF) state_f[threadIdx.x] = sf[threadIdx.x];
+    if (threadIdx.x < SI) state_i[threadIdx.x] = si[threadIdx.x];
+  }
+}
+
+DParams make_params(const void* vertex, const void* normal,
+                    const void* vvalid, const void* nvalid, const void* label,
+                    const void* prob, const void* model, const void* state_f,
+                    const void* state_i, void* partials, int p, int mh,
+                    int mw, int weighting, int bilinear, int semantic,
+                    unsigned long long movable, float fov_up, float inv_fov,
+                    float deg, float inv_pi, float max_dist, float angle_thr,
+                    float factor, float inv_factor) {
   DParams q;
   q.vertex = static_cast<const float*>(vertex);
   q.normal = static_cast<const float*>(normal);
@@ -433,6 +544,25 @@ extern "C" int icp_products(
   q.angle_thr = angle_thr;
   q.factor = factor;
   q.inv_factor = inv_factor;
+  return q;
+}
+
+}  // namespace
+
+// Kernel D on `stream`: `nblocks` blocks of 256 threads over `p` data
+// pixels; returns cudaGetLastError() after the launch.
+extern "C" int icp_products(
+    const void* vertex, const void* normal, const void* vvalid,
+    const void* nvalid, const void* label, const void* prob,
+    const void* model, const void* state_f, const void* state_i,
+    void* partials, int p, int mh, int mw, int nblocks, int weighting,
+    int bilinear, int semantic, unsigned long long movable, float fov_up,
+    float inv_fov, float deg, float inv_pi, float max_dist, float angle_thr,
+    float factor, float inv_factor, void* stream) {
+  const DParams q = make_params(
+      vertex, normal, vvalid, nvalid, label, prob, model, state_f, state_i,
+      partials, p, mh, mw, weighting, bilinear, semantic, movable, fov_up,
+      inv_fov, deg, inv_pi, max_dist, angle_thr, factor, inv_factor);
   icp_products_kernel<<<nblocks, THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(q);
   return static_cast<int>(cudaGetLastError());
@@ -447,4 +577,51 @@ extern "C" int gn_update(const void* partials, int nblocks, void* state_f,
       static_cast<float*>(state_f), static_cast<int*>(state_i), delta_thr,
       stop_thr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel F's residency on the current device: the blocks of 256 threads an
+// SM holds at once and the SMs; returns a CUDA error code (not a launch:
+// nothing waits for the device).
+extern "C" int gn_loop_occupancy(int* blocks_per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    int coop = 0;
+    rc = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (rc == cudaSuccess && !coop) rc = cudaErrorNotSupported;
+  }
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, gn_loop_kernel, THREADS, 0);
+  return static_cast<int>(rc);
+}
+
+// Kernel F on `stream`: a cooperative launch of `grid` blocks of 256
+// threads (at most nslots and at most what the card holds at once) that
+// runs up to max_iter iterations on the state; `partials` holds
+// [2, NPART, nslots] floats. Returns the launch's error code (a grid too
+// large for the card is cudaErrorCooperativeLaunchTooLarge).
+extern "C" int gn_loop(
+    const void* vertex, const void* normal, const void* vvalid,
+    const void* nvalid, const void* label, const void* prob,
+    const void* model, void* state_f, void* state_i, void* partials, int p,
+    int mh, int mw, int nslots, int weighting, int bilinear, int semantic,
+    unsigned long long movable, float fov_up, float inv_fov, float deg,
+    float inv_pi, float max_dist, float angle_thr, float factor,
+    float inv_factor, int grid, int max_iter, float delta_thr,
+    float stop_thr, void* stream) {
+  DParams q = make_params(
+      vertex, normal, vvalid, nvalid, label, prob, model, nullptr, nullptr,
+      partials, p, mh, mw, weighting, bilinear, semantic, movable, fov_up,
+      inv_fov, deg, inv_pi, max_dist, angle_thr, factor, inv_factor);
+  float* sf = static_cast<float*>(state_f);
+  int* si = static_cast<int*>(state_i);
+  void* args[] = {&q, &nslots, &max_iter, &sf, &si, &delta_thr, &stop_thr};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(gn_loop_kernel), dim3(grid),
+      dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();  // clear what the launch set
+  return static_cast<int>(rc != cudaSuccess ? rc : last);
 }

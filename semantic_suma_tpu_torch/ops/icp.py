@@ -3,15 +3,20 @@ per linearization, and the Gauss-Newton loop (counterpart of
 ``semantic_suma_tpu/ops/icp.py``).
 
 The JAX package runs the whole loop as one device ``while_loop``. Here
-:func:`gauss_newton` launches one iteration ``max_iterations`` times with
-no host read, on a latch: kernel D (:func:`icp_products`,
-``csrc/icp.cu``) linearizes at the pose in device memory and writes each
-block's partial sums, kernel E (:func:`gn_update`) sums them, solves, runs
-the stop test, updates the pose and sets ``done``, after which both return
-at once. The state of the loop (:func:`gn_state`) lives in two small device
-tensors. On a CPU tensor the wrappers run the plain versions
-(:func:`icp_products_plain`, :func:`gn_update_plain`) on the same latch, and
-the loop ends at the latch (reading a CPU tensor waits for nothing).
+:func:`gauss_newton` runs it as one launch with no host read: kernel F
+(:func:`gn_loop`, ``csrc/icp.cu``), a cooperative kernel whose blocks each
+linearize their slots of the data pixels, meet at one grid barrier an
+iteration, and each sum all the slots, solve, run the stop test and update
+the pose, so that every block holds the same state and all stop together.
+The loop's state (:func:`gn_state`) lives in two small device tensors.
+Kernels D (:func:`icp_products`: one linearization, each block's partial
+sums) and E (:func:`gn_update`: the sum, the solve, the stop test, the
+update and the latch ``done``) are one iteration's two halves, which F
+computes bit for bit; ``gauss_newton_latched`` runs them (or their plain
+versions) on the latch when they are passed, and the card's checks hold F
+against them. On a CPU tensor :func:`gn_loop` runs the plain versions
+(:func:`icp_products_plain`, :func:`gn_update_plain`) on the same latch and
+ends there (reading a CPU tensor waits for nothing).
 
 With a ``group`` (the sharded pipeline, ``parallel/``),
 :func:`gauss_newton_host` runs: each rank linearizes its slice of the image
@@ -259,7 +264,7 @@ def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, x, torch.nan)
 
 
-# --- the latched loop's state and its two steps (kernels D and E) ---------
+# --- the loop's state, kernel F and its two halves (kernels D and E) -----
 
 # One linearization's sums, a row per block of kernel D: the lower triangle
 # of A^T A[0:6, 0:6] by rows (21), A^T A[0:6, 6] (6), then error,
@@ -271,7 +276,7 @@ _NTRI = 21
 # inlier_residual 18; state_i [8] int32: k 0, done 1, valid 2, inlier 3,
 # outlier 4, invalid 5 (csrc/icp.cu)
 _SF, _SI = 20, 8
-_THREADS = 256        # kernel D's block: one thread a data pixel
+_THREADS = 256        # kernels D and F: one thread a data pixel
 _MAX_BLOCKS = 1024
 
 
@@ -366,11 +371,17 @@ def _lib():
         lib.icp_products.restype = i
         lib.gn_update.argtypes = [p, i, p, p, f, f, p]
         lib.gn_update.restype = i
+        lib.gn_loop.argtypes = (lib.icp_products.argtypes[:-1]
+                                + [i, i, f, f, p])
+        lib.gn_loop.restype = i
+        lib.gn_loop_occupancy.argtypes = [ctypes.POINTER(i)] * 2
+        lib.gn_loop_occupancy.restype = i
     return lib
 
 
 def _blocks(p: int) -> int:
-    """Kernel D's grid for ``p`` data pixels (its rows of partial sums)."""
+    """Kernel D's grid for ``p`` data pixels (its rows of partial sums),
+    and kernel F's slots: slot ``s`` is D's block ``s``."""
     return max(1, min(_MAX_BLOCKS, -(-p // _THREADS)))
 
 
@@ -400,6 +411,48 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
         else (t != 0).view(torch.uint8)
 
 
+def _check_state(state_f: torch.Tensor, state_i: torch.Tensor,
+                 what: str) -> None:
+    if state_f.shape != (_SF,) or state_i.shape != (_SI,) \
+            or state_f.dtype != torch.float32 or state_i.dtype != torch.int32 \
+            or not state_f.is_contiguous() or not state_i.is_contiguous():
+        raise ValueError(f"{what}: not a gn_state")
+
+
+def _kernel_args(state_f: torch.Tensor, state_i: torch.Tensor, data: Maps,
+                 model_img: torch.Tensor, icp: IcpConfig,
+                 model_cfg: DataConfig, semantic: bool,
+                 partials: torch.Tensor, what: str):
+    """The checks of kernels D and F on one device and their shared leading
+    arguments, up to the scalar floats: ``(args, keep)``, ``keep`` holding
+    the converted tensors alive while the launch is queued. ``partials``,
+    the kernel's buffer of partial sums, is the caller's to shape."""
+    dev = state_f.device
+    h, w = data.vertex.shape[:2]
+    p = h * w
+    mh, mw = model_cfg.height, model_cfg.width
+    if model_img.shape != (mh * mw, 8) or model_img.dtype != torch.float32 \
+            or not model_img.is_contiguous():
+        raise ValueError(f"{what}: model image {tuple(model_img.shape)}"
+                         f" is not a contiguous float32 [{mh * mw}, 8]")
+    _check_state(state_f, state_i, what)
+    tensors = (data.vertex, data.normal, data.vertex_valid, data.normal_valid,
+               data.sem_label, data.sem_prob, model_img, state_i, partials)
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: tensors on different devices")
+    keep = (data.vertex.to(torch.float32).contiguous(),
+            data.normal.to(torch.float32).contiguous(),
+            _u8(data.vertex_valid), _u8(data.normal_valid),
+            data.sem_label.to(torch.int32).contiguous(),
+            data.sem_prob.to(torch.float32).contiguous())
+    weighting, bilinear, *floats = _products_consts(icp, model_cfg)
+    args = (*(t.data_ptr() for t in keep), model_img.data_ptr(),
+            state_f.data_ptr(), state_i.data_ptr(), partials.data_ptr(), p,
+            mh, mw, _blocks(p), weighting, bilinear, int(semantic),
+            _MOVABLE_MASK, *floats)
+    return args, keep
+
+
 def icp_products(state_f: torch.Tensor, state_i: torch.Tensor, data: Maps,
                  model_img: torch.Tensor, icp: IcpConfig,
                  model_cfg: DataConfig, semantic: bool = True,
@@ -415,36 +468,16 @@ def icp_products(state_f: torch.Tensor, state_i: torch.Tensor, data: Maps,
     if dev.type != "cuda":
         raise ValueError(f"icp_products: unsupported device {dev}")
     h, w = data.vertex.shape[:2]
-    p = h * w
-    mh, mw = model_cfg.height, model_cfg.width
-    if model_img.shape != (mh * mw, 8) or model_img.dtype != torch.float32 \
-            or not model_img.is_contiguous():
-        raise ValueError(f"icp_products: model image {tuple(model_img.shape)}"
-                         f" is not a contiguous float32 [{mh * mw}, 8]")
-    if state_f.shape != (_SF,) or state_i.shape != (_SI,) \
-            or state_f.dtype != torch.float32 or state_i.dtype != torch.int32:
-        raise ValueError("icp_products: not a gn_state")
-    tensors = (data.vertex, data.normal, data.vertex_valid, data.normal_valid,
-               data.sem_label, data.sem_prob, model_img, state_i)
-    if any(t.device != dev for t in tensors):
-        raise ValueError("icp_products: tensors on different devices")
-    vertex = data.vertex.to(torch.float32).contiguous()
-    normal = data.normal.to(torch.float32).contiguous()
-    label = data.sem_label.to(torch.int32).contiguous()
-    prob = data.sem_prob.to(torch.float32).contiguous()
-    vv, nv = _u8(data.vertex_valid), _u8(data.normal_valid)
-    nb = _blocks(p)
+    nb = _blocks(h * w)
     if out is None:
         out = torch.empty((nb, NPART), dtype=torch.float32, device=dev)
-    elif out.shape != (nb, NPART) or out.device != dev:
+    elif out.shape != (nb, NPART) or out.dtype != torch.float32 \
+            or not out.is_contiguous():
         raise ValueError("icp_products: out is not a [blocks, NPART] buffer")
-    weighting, bilinear, *floats = _products_consts(icp, model_cfg)
-    rc = _lib().icp_products(
-        vertex.data_ptr(), normal.data_ptr(), vv.data_ptr(), nv.data_ptr(),
-        label.data_ptr(), prob.data_ptr(), model_img.data_ptr(),
-        state_f.data_ptr(), state_i.data_ptr(), out.data_ptr(), p, mh, mw, nb,
-        weighting, bilinear, int(semantic), _MOVABLE_MASK, *floats,
-        torch.cuda.current_stream(dev).cuda_stream)
+    args, _keep = _kernel_args(state_f, state_i, data, model_img, icp,
+                               model_cfg, semantic, out, "icp_products")
+    rc = _lib().icp_products(*args,
+                             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "icp_products")
     icp_products.launches += 1
     return out
@@ -482,31 +515,113 @@ def gn_update(partials: torch.Tensor, state_f: torch.Tensor,
 gn_update.launches = 0
 
 
+def gn_loop_plain(state_f: torch.Tensor, state_i: torch.Tensor, data: Maps,
+                  model_img: torch.Tensor, icp: IcpConfig,
+                  model_cfg: DataConfig, semantic: bool = True,
+                  max_iterations: int | None = None) -> None:
+    """Kernel F's plain version, in place on the state: up to
+    ``max_iterations`` (default ``icp.max_iterations``) trips of
+    :func:`icp_products_plain` and :func:`gn_update_plain`, ending at the
+    latch (a read of ``done`` a trip: on a CPU tensor it waits for
+    nothing)."""
+    if max_iterations is None:
+        max_iterations = icp.max_iterations
+    for _ in range(max_iterations):
+        if bool(state_i[1]):
+            break
+        row = icp_products_plain(state_f, state_i, data, model_img, icp,
+                                 model_cfg, semantic)
+        gn_update_plain(row, state_f, state_i, icp)
+
+
+@functools.lru_cache(maxsize=8)
+def gn_loop_residency(device_index: int) -> tuple:
+    """``(blocks a SM, SMs)``: how many blocks of kernel F the card holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), queried once
+    a device; raises where the card has no cooperative launch."""
+    blocks, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _lib().gn_loop_occupancy(ctypes.byref(blocks), ctypes.byref(sms))
+    cuda_build.check(rc, "gn_loop_occupancy")
+    return blocks.value, sms.value
+
+
+def gn_loop_grid(nslots: int, blocks_per_sm: int, sms: int) -> int:
+    """Kernel F's blocks: one a slot, at most what the card holds at once
+    (a cooperative launch needs every block resident)."""
+    return max(1, min(nslots, blocks_per_sm * sms))
+
+
+def gn_loop(state_f: torch.Tensor, state_i: torch.Tensor, data: Maps,
+            model_img: torch.Tensor, icp: IcpConfig, model_cfg: DataConfig,
+            semantic: bool = True,
+            max_iterations: int | None = None) -> None:
+    """Up to ``max_iterations`` (default ``icp.max_iterations``)
+    Gauss-Newton iterations on the state, in place, ending at the stop
+    test: what ``max_iterations`` trips of
+    :func:`icp_products` and :func:`gn_update` leave, bit for bit. On a CPU
+    tensor it runs :func:`gn_loop_plain`; on a CUDA tensor it launches
+    kernel F once (a cooperative launch: every block of the grid resident)
+    or raises, also when the card refuses the cooperative launch."""
+    dev = state_f.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"gn_loop: unsupported device {dev}")
+    _check_state(state_f, state_i, "gn_loop")
+    if max_iterations is None:
+        max_iterations = icp.max_iterations
+    if not 0 <= int(max_iterations) == max_iterations:
+        raise ValueError(f"gn_loop: max_iterations {max_iterations!r} is not "
+                         "a whole number >= 0")
+    max_iterations = int(max_iterations)
+    if dev.type == "cpu":
+        return gn_loop_plain(state_f, state_i, data, model_img, icp,
+                             model_cfg, semantic, max_iterations)
+    h, w = data.vertex.shape[:2]
+    nslots = _blocks(h * w)
+    halves = torch.empty((2, NPART, nslots), dtype=torch.float32, device=dev)
+    args, _keep = _kernel_args(state_f, state_i, data, model_img, icp,
+                               model_cfg, semantic, halves, "gn_loop")
+    grid = gn_loop_grid(nslots, *gn_loop_residency(dev.index))
+    rc = _lib().gn_loop(*args, grid, max_iterations, icp.delta,
+                        icp.stopping_threshold,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "gn_loop")
+    gn_loop.launches += 1
+
+
+gn_loop.launches = 0
+
+
 def gauss_newton_latched(data: Maps, model: Maps, t0: torch.Tensor,
                          icp: IcpConfig, model_cfg: DataConfig,
                          semantic: bool = True,
                          max_iterations: int | None = None,
                          early_exit: bool = True, products=None,
                          update=None) -> IcpResult:
-    """The latched loop: ``max_iterations`` trips of ``products`` then
-    ``update`` on one :func:`gn_state` (default :func:`icp_products` and
-    :func:`gn_update`, kernels D and E on a card; the plain versions may be
-    passed to hold the loop against them there). No trip reads the host. On
-    the CPU, ``early_exit`` ends the loop at the latch, which changes no
-    value. Returns :func:`gn_result` of the state."""
+    """The loop on one :func:`gn_state` with no host read: :func:`gn_loop`
+    (kernel F, one launch, on a card). Given ``products`` and ``update``
+    (:func:`icp_products` and :func:`gn_update`, kernels D and E, or their
+    plain versions) it runs ``max_iterations`` trips of them on the latch
+    instead, which the card's checks hold kernel F against; on the CPU
+    ``early_exit`` ends those trips at the latch, which changes no value.
+    Returns :func:`gn_result` of the state."""
     max_iter = icp.max_iterations if max_iterations is None else max_iterations
-    products = icp_products if products is None else products
-    update = gn_update if update is None else update
     model_img = _pack_model_image(model)
     state_f, state_i = gn_state(t0)
-    stop_early = early_exit and state_f.device.type == "cpu"
-    buf = None
-    for _ in range(max_iter):
-        buf = products(state_f, state_i, data, model_img, icp, model_cfg,
-                       semantic, out=buf)
-        update(buf, state_f, state_i, icp)
-        if stop_early and bool(state_i[1]):
-            break
+    if products is None and update is None:
+        gn_loop(state_f, state_i, data, model_img, icp, model_cfg, semantic,
+                max_iter)
+    else:
+        products = icp_products if products is None else products
+        update = gn_update if update is None else update
+        stop_early = early_exit and state_f.device.type == "cpu"
+        buf = None
+        for _ in range(max_iter):
+            buf = products(state_f, state_i, data, model_img, icp, model_cfg,
+                           semantic, out=buf)
+            update(buf, state_f, state_i, icp)
+            if stop_early and bool(state_i[1]):
+                break
     result = gn_result(state_f, state_i)
     _count_call(result.iterations)
     return result
@@ -527,14 +642,14 @@ def _sum_over(group, ata: torch.Tensor, stats: IcpStats):
 def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
                  model_cfg: DataConfig, semantic: bool = True,
                  max_iterations: int | None = None,
-                 group=None, early_exit: bool = True) -> IcpResult:
+                 group=None) -> IcpResult:
     """Gauss-Newton alignment. Stops on a minimal step (||delta||_inf <
     delta), a vanishing gradient, a converged error change, or a non-finite
     step, checked after applying the increment; at most ``max_iterations``
     (default ``icp.max_iterations``) linearizations. Without ``group`` it
-    is :func:`gauss_newton_latched`: no host read, ``iterations`` a device
-    int32. ``gn_counts`` counts the calls and their iterations for the run
-    reports.
+    is :func:`gauss_newton_latched`: no host read, one launch of kernel F
+    on a card, ``iterations`` a device int32. ``gn_counts`` counts the
+    calls and their iterations for the run reports.
 
     ``group`` (a ``parallel.distributed.Group``): ``data`` holds this rank's
     rows only, and :func:`gauss_newton_host` sums ``A^T A`` and the
@@ -544,7 +659,7 @@ def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
         return gauss_newton_host(data, model, t0, icp, model_cfg, semantic,
                                  max_iterations, group)
     return gauss_newton_latched(data, model, t0, icp, model_cfg, semantic,
-                                max_iterations, early_exit)
+                                max_iterations)
 
 
 def gauss_newton_host(data: Maps, model: Maps, t0: torch.Tensor,

@@ -16,8 +16,8 @@ device tensors and reads them after each scan, so it changes no value.
 
 To see every iteration, the trace keeps the host loop: each alignment runs
 ``icp.gauss_newton_host`` (``build_rows``, ``rows.T @ rows``, the solve and
-one host read an iteration), not the latched loop of kernels D and E that
-the odometry step runs on a card, so its sums round in another order.
+one host read an iteration), not kernel F's one-launch loop that the
+odometry step runs on a card, so its sums round in another order.
 """
 
 from __future__ import annotations
