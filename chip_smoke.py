@@ -138,7 +138,12 @@ and the exit code is non-zero:
      64x900, a 2^21-row arena split over 2 ranks on the one card, gloo):
      scans/s, ATE, t_rel, closures (at least one), rebases, no dropped
      creation, each rank's peak memory, launches and collectives a scan
-     (CUDA events); then the same run on one device;
+     (CUDA events); then the same run on one device. Then
+     ``[sharded-syncs]``: phase 5's cell and first scans on two ranks,
+     each step's synchronizations (CUDA sync debug mode) and host reads
+     beside one device's. Every sharded phase (23 to 25 and the
+     sharded-8dev row) asserts that its Gauss-Newton iterations ran on
+     kernels D and E (as many launches of each, at least one);
  24. ``[sharded-nccl]``: ``--sharded 1`` over nccl (the backend rule's
      choice for one rank on one card) and over gloo, 20 scans: the poses
      exactly equal;
@@ -186,8 +191,16 @@ and the exit code is non-zero:
      ``rows.T @ rows``; of F (a call, eager, an iteration, its plain
      version, its grid); and a ``gauss_newton`` call (one launch of F
      asserted, no host read) against the trips of D and E and the host
-     loop. Phase 8 holds D, E and F the same way at the inputs of a verify
-     program.
+     loop. The sharded route of ``gauss_newton`` (``group=``: D and E,
+     the partial sums added over the ranks) at one rank equal to F bit for
+     bit at the main and default inputs, and two ranks emulated (D on each
+     half of the rows, the buffers added, E) against the plain versions
+     within E's limits. Every ``build_rows`` call on the card here is a
+     deliberate plain-version check, counted apart. Phase 8 holds D, E, F
+     and the sharded route the same way at the inputs of a verify program,
+     and ``evaluate`` (kernel F's first iteration) against ``build_rows``'
+     statistics at the composed view: counts exact, error sums within 1e-5
+     relative.
 Phase 10 runs the segmenter and segmenter-full rows as well (each within
 twice the JAX package's round-5 row, no dropped creation) and the
 sharded-8dev row (8 ranks on the card; twice the JAX row, which was taken
@@ -198,14 +211,17 @@ to 21 and 23 to 27 last, with 29 after 26.
 Each of phases 5, 8, 9, 10 to 12, 16, 17, 19 to 25 and 28 counts the kernels'
 launches from zero just before its run and reads them just after (a
 sharded run's ranks start from zero in their own processes and send their
-counts back: the sum and each rank's are printed). It prints the card's name and power limit, one
+counts back: the sum and each rank's are printed), with the calls of
+``evaluate`` and of ``build_rows`` on CUDA tensors: every path is held to
+0 of the latter (no plain linearization on the card), the single-device
+paths to one launch of F a ``gauss_newton`` or ``evaluate`` call and
+none of D and E. It prints the card's name and power limit, one
 ``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
-shape that a path launched and for kernels C and F (``launches`` is the sum
-over the paths, ``launches_by_path`` the parts; what no path launches, a
-KITTI scan's projection (phase 3), the two-stream render (phases 3 and 8)
-and kernels D and E, which F replaced, are listed in a
-``{"held_off_path": [...]}`` line with 0 launches; phase 11 prints the sizes
-of the projections it launched), and
+shape that a path launched and for kernels C, D, E and F (``launches`` is
+the sum over the paths, ``launches_by_path`` the parts; what no path
+launches, a KITTI scan's projection (phase 3) and the two-stream render
+(phases 3 and 8), are listed in a ``{"held_off_path": [...]}`` line with 0
+launches; phase 11 prints the sizes of the projections it launched), and
 last one
 ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give each phase's
 seconds. Imports no JAX.
@@ -850,6 +866,131 @@ def _hold_gn_loop(tag, data, model, t0, cfg) -> dict:
     return out
 
 
+def _bits_of(res):
+    """A Gauss-Newton result's pose, statistics and iterations as int32
+    bits (the iterations of the sharded route are a Python int)."""
+    dev = res.pose.device
+    k = torch.as_tensor(res.iterations, dtype=torch.int32, device=dev)
+    return torch.cat([res.pose.reshape(-1).view(torch.int32),
+                      *(t.reshape(1).view(torch.int32) for t in res.stats),
+                      k.reshape(1)])
+
+
+def _hold_sharded(tag, data, model, t0, cfg) -> dict:
+    """The sharded route of ``icp.gauss_newton`` (``group=``: kernels D and
+    E, the partial sums added over the ranks) on one alignment's inputs.
+    At one rank (a group with no process group, where the sum over the
+    ranks is the rank's own): against kernel F (``gauss_newton`` without a
+    group), the pose, the statistics and the iterations bit for bit, one
+    launch of D and of E an iteration and one host read. Then two ranks
+    emulated in this process: each iteration D on the top and on the bottom
+    half of the data rows, the two buffers added elementwise (the float32
+    sum that the group's all-reduce of two ranks makes), E on the sum;
+    against the same with the plain versions (``icp_products_plain`` on
+    each half, the two rows added, ``gn_update_plain``). At one iteration
+    the integer state equal (the counters are exact at one pose), the pose
+    within 1e-5 and the error sums within 1e-5 relative (E's limits); over
+    a whole loop the pose within ``[main]``'s per-scan limits, 1e-4 m and
+    1e-5 rad, where neither run caps."""
+    from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.ops import icp
+    from semantic_suma_tpu_torch.parallel.distributed import Group
+    ic, mc, sem = cfg.icp, cfg.model, cfg.semantic.enabled
+    f = icp.gauss_newton(data, model, t0, ic, mc, sem)
+    before = (icp.icp_products.launches, icp.gn_update.launches,
+              icp.gn_loop.launches, to_host.count)
+    one = icp.gauss_newton(data, model, t0, ic, mc, sem, group=Group())
+    after = (icp.icp_products.launches, icp.gn_update.launches,
+             icp.gn_loop.launches, to_host.count)
+    k = one.iterations
+    if tuple(a - b for a, b in zip(after, before)) != (k, k, 0, k):
+        raise AssertionError(f"[icp] {tag}: the sharded route launched D, "
+                             f"E, F and read the host {after} - {before} "
+                             f"times in {k} iterations")
+    if not torch.equal(_bits_of(one), _bits_of(f)):
+        raise AssertionError(f"[icp] {tag}: the sharded route at one rank "
+                             f"{_bits_of(one).tolist()} against kernel F "
+                             f"{_bits_of(f).tolist()}")
+    img = icp._pack_model_image(model)
+    h = data.vertex.shape[0]
+    halves = (icp.Maps(*(a[:h // 2] for a in data)),
+              icp.Maps(*(a[h // 2:] for a in data)))
+
+    def two_ranks(products, update, cap):
+        sf, si = icp.gn_state(t0)
+        for _ in range(cap):
+            a, b = (products(sf, si, m, img, ic, mc, sem) for m in halves)
+            update(a + b, sf, si, ic)
+            if bool(si[1]):
+                break
+        return sf, si
+
+    out = {"iterations": k}
+    sf, si = two_ranks(icp.icp_products, icp.gn_update, 1)
+    sfp, sip = two_ranks(icp.icp_products_plain, icp.gn_update_plain, 1)
+    out["pose_1"] = float((sf[:16] - sfp[:16]).abs().max())
+    out["rel_1"] = float(((sf[16:19] - sfp[16:19]).abs()
+                          / sfp[16:19].abs().clamp_min(1e-30)).max())
+    if not (torch.equal(si, sip) and out["pose_1"] <= 1e-5
+            and out["rel_1"] <= 1e-5):
+        raise AssertionError(f"[icp] {tag}: two ranks emulated, one "
+                             f"iteration: {sf.tolist()} {si.tolist()} against "
+                             f"{sfp.tolist()} {sip.tolist()}")
+    cap = ic.max_iterations
+    sf, si = two_ranks(icp.icp_products, icp.gn_update, cap)
+    sfp, sip = two_ranks(icp.icp_products_plain, icp.gn_update_plain, cap)
+    out["two_ranks_iterations"] = (int(si[0]), int(sip[0]))
+    pk = sf[:16].view(4, 4).double().cpu()
+    pp = sfp[:16].view(4, 4).double().cpu()
+    out["t"] = float((pk[:3, 3] - pp[:3, 3]).abs().max())
+    out["r"] = _small_angle(torch.linalg.inv(pp) @ pk)
+    capped = max(out["two_ranks_iterations"]) >= cap
+    if not capped and not (out["t"] <= 1e-4 and out["r"] <= 1e-5):
+        raise AssertionError(f"[icp] {tag}: two ranks emulated, a whole "
+                             f"loop: {out}")
+    print(f"[icp] {tag}: the sharded route at one rank equals kernel F bit "
+          f"for bit ({k} iterations: {k} launches each of D and E, {k} host "
+          f"reads); two ranks emulated (D on each half of the rows, the "
+          f"buffers added, E) against the plain versions: one iteration "
+          f"integer state equal, pose within {out['pose_1']:.3e}, errors "
+          f"{out['rel_1']:.3e} relative (limits 1e-5); a whole loop "
+          f"{out['two_ranks_iterations']} iterations (kernels, plain), "
+          f"{out['t']:.3e} m and {out['r']:.3e} rad apart (limits 1e-4 m, "
+          f"1e-5 rad{', not held: a run capped' if capped else ''})")
+    return out
+
+
+def _hold_evaluate(tag, data, model, cfg) -> dict:
+    """``icp.evaluate`` (kernel F's first iteration, one launch) against the
+    statistics of ``build_rows`` at the identity, the plain linearization
+    it replaced: the four counts exactly equal and the error and the inlier
+    residual within 1e-5 relative (kernel D's limit on its error sums)."""
+    from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.ops import icp
+    ic, mc, sem = cfg.icp, cfg.model, cfg.semantic.enabled
+    eye = torch.eye(4, dtype=torch.float32, device=data.vertex.device)
+    launches0, reads0 = icp.gn_loop.launches, to_host.count
+    got = icp.evaluate(eye, data, model, ic, mc, sem)
+    if (icp.gn_loop.launches - launches0, to_host.count - reads0) != (1, 0):
+        raise AssertionError(f"[icp] {tag}: evaluate launched kernel F "
+                             f"{icp.gn_loop.launches - launches0} times and "
+                             f"read the host {to_host.count - reads0} times")
+    _, want = icp.build_rows(eye, data, model, ic, mc, 0, sem)
+    counts = ("valid", "inlier", "outlier", "invalid")
+    g = {n: int(getattr(got, n)) for n in counts}
+    w = {n: int(getattr(want, n)) for n in counts}
+    rel = max(abs(float(getattr(got, n)) - float(getattr(want, n)))
+              / max(abs(float(getattr(want, n))), 1e-30)
+              for n in ("error", "inlier_residual"))
+    print(f"[icp] {tag}: evaluate on kernel F against build_rows' "
+          f"statistics: counts {g} {'equal' if g == w else f'against {w}'}, "
+          f"error and inlier residual within {rel:.3e} relative (limit "
+          f"1e-5)")
+    if g != w or not rel <= 1e-5:
+        raise AssertionError(f"[icp] {tag}: evaluate {got} against {want}")
+    return {"rel": rel}
+
+
 def _poisoned_maps(data):
     """``data`` with the vertex of its first valid pixel set to NaN: the
     sums turn NaN and the solve fails (the CPU tests' ``solve-fails``)."""
@@ -887,11 +1028,14 @@ def phase_icp(dev, floors):
     from semantic_suma_tpu_torch.ops import icp
     from semantic_suma_tpu_torch.tools.gn_loop_designs import cell_inputs
 
-    holds, inputs, f_holds = {}, {}, {}
+    plain0 = icp.plain_on_cuda["build_rows"]
+    holds, inputs, f_holds, s_holds = {}, {}, {}, {}
     for name, filtered in (("main", True), ("default", False)):
         inputs[name] = cell_inputs(dev, filtered)
         holds[name] = _hold_icp(name, *inputs[name][1:], inputs[name][0])
         f_holds[name] = _hold_gn_loop(name, *inputs[name][1:],
+                                      inputs[name][0])
+        s_holds[name] = _hold_sharded(name, *inputs[name][1:],
                                       inputs[name][0])
     cfg, data, model, t0 = inputs["main"]
     turkey = cfg.replace(icp=dataclasses.replace(
@@ -1045,6 +1189,10 @@ def phase_icp(dev, floors):
           f"{host_clock:.3f} ms host clock, {host_reads:.2f} host reads")
     if gn_reads != 0:
         raise AssertionError(f"gauss_newton read the host {gn_reads} times")
+    print(f"[icp] build_rows on CUDA tensors in this phase's deliberate "
+          f"plain-version checks and timings: "
+          f"{icp.plain_on_cuda['build_rows'] - plain0} calls (counted apart "
+          f"from the paths, each of which is held to 0)")
     common = {"route": "cuda",
               "source": "semantic_suma_tpu_torch/csrc/icp.cu",
               "shape": "main", "bound_by": "bytes"}
@@ -1057,10 +1205,15 @@ def phase_icp(dev, floors):
              "library_ms": lib_ms, **common}
     if d_bound != d_terms["bytes"]:
         rec_d["bound_by"] = "operations"
+    rec_d["sharded_equal_to_f"] = True
     rec_e = {"name": "gn_update",
              "replaces": "semantic_suma_tpu/ops/icp.py:240",
-             "max_abs_err": max(v["e_pose"] for v in holds.values()),
-             "max_scaled_err": max(v["e_rel"] for v in holds.values()),
+             "max_abs_err": max(max(v["e_pose"] for v in holds.values()),
+                                max(v["pose_1"] for v in s_holds.values())),
+             "max_scaled_err": max(max(v["e_rel"] for v in holds.values()),
+                                   max(v["rel_1"]
+                                       for v in s_holds.values())),
+             "sharded_equal_to_f": True,
              "ms": e_ms, "eager_ms": e_eager, "dead_ms": e_dead,
              "plain_ms": e_plain, "bound_ms": e_bound, "library_ms": None,
              **common}
@@ -1783,8 +1936,9 @@ _GN_CALLS_AT_ZERO = [0]
 
 def _zero_launch_counts():
     from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
-    from semantic_suma_tpu_torch.ops.icp import (gn_counts, gn_loop, gn_update,
-                                                 icp_products)
+    from semantic_suma_tpu_torch.ops.icp import (evaluate, gn_counts, gn_loop,
+                                                 gn_update, icp_products,
+                                                 plain_on_cuda)
     from semantic_suma_tpu_torch.ops.knn import knn_clean_image
     from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
     bilateral_filter.launches = 0
@@ -1794,11 +1948,14 @@ def _zero_launch_counts():
     icp_products.launches = 0
     gn_update.launches = 0
     gn_loop.launches = 0
+    evaluate.calls = 0
+    plain_on_cuda["build_rows"] = 0
     _GN_CALLS_AT_ZERO[0] = gn_counts["calls"]
 
 
 def _read_launch_counts() -> dict:
-    """The kernels' launches since ``_zero_launch_counts`` and the
+    """The kernels' launches since ``_zero_launch_counts``, the calls of
+    ``icp.evaluate`` and of ``build_rows`` on CUDA tensors, and the
     ``gauss_newton`` calls (``gn_calls``) of this process in that time."""
     from semantic_suma_tpu_torch.cli import _launch_counts
     from semantic_suma_tpu_torch.ops.icp import gn_counts
@@ -1807,14 +1964,36 @@ def _read_launch_counts() -> dict:
 
 
 def _one_f_a_call(tag: str, launches: dict) -> str:
-    """Assert one launch of kernel F a ``gauss_newton`` call and none of
-    kernels D and E; return the line that says so."""
+    """Assert one launch of kernel F a ``gauss_newton`` or ``evaluate`` call,
+    none of kernels D and E and no plain linearization (``build_rows`` on a
+    CUDA tensor); return the line that says so."""
     line = (f"kernel F {launches['gn_loop']} launches for "
-            f"{launches['gn_calls']} gauss_newton calls; kernels D and E "
-            f"{launches['icp_products']} and {launches['gn_update']}")
+            f"{launches['gn_calls']} gauss_newton calls and "
+            f"{launches['evaluate_calls']} evaluate calls; kernels D and E "
+            f"{launches['icp_products']} and {launches['gn_update']}; "
+            f"build_rows on CUDA {launches['build_rows_on_cuda']}")
     if launches["gn_loop"] != launches["gn_calls"] \
+            + launches["evaluate_calls"] \
             or launches["gn_calls"] == 0 or launches["icp_products"] \
-            or launches["gn_update"]:
+            or launches["gn_update"] or launches["build_rows_on_cuda"]:
+        raise AssertionError(f"{tag}: {line}")
+    return line
+
+
+def _d_and_e_a_trip(tag: str, launches: dict) -> str:
+    """Assert that a sharded path ran the Gauss-Newton iterations of its
+    sharded steps on kernels D and E (as many launches of each, at least
+    one) and made no plain linearization; return the line that says so.
+    Kernel F runs there too: the loop closer's verification and its
+    ``evaluate`` on the replicated scan."""
+    line = (f"kernels D and E {launches['icp_products']} and "
+            f"{launches['gn_update']} launches (the sharded Gauss-Newton "
+            f"iterations, summed over the ranks); kernel F "
+            f"{launches['gn_loop']} ({launches['evaluate_calls']} of them "
+            f"evaluate); build_rows on CUDA {launches['build_rows_on_cuda']}")
+    if not launches["icp_products"] \
+            or launches["icp_products"] != launches["gn_update"] \
+            or launches["build_rows_on_cuda"]:
         raise AssertionError(f"{tag}: {line}")
     return line
 
@@ -1884,6 +2063,7 @@ def phase_loop(dev, floors, profile_scans: int = 0):
     _print_call_types("[loop] timed lap", rows[lap1:])
     print(f"[loop] kernel B launches by (candidates, flags): "
           f"{sorted(counts['zbuffer_cells_by_shape'].items())}")
+    print(f"[loop] {_one_f_a_call('loop', counts)}")
 
     # device launches per call: some more scans, each traced on its own
     launches = {}
@@ -1954,6 +2134,14 @@ def phase_loop(dev, floors, profile_scans: int = 0):
                                    slam.last_increment, cfg)
     real["gn-loop-verify"] = _hold_gn_loop(
         "loop-verify", slam.last_maps, old_maps, slam.last_increment, cfg)
+    real["sharded-verify"] = _hold_sharded(
+        "loop-verify", slam.last_maps, old_maps, slam.last_increment, cfg)
+    # evaluate at its own inputs: the scan against the composed old and new
+    # views (the verification chain's composed statistics)
+    comp = sm.compose_views(old_maps, slam.model_maps,
+                            cfg.loop.max_loop_closure_distance)
+    real["evaluate"] = _hold_evaluate("loop-composed", slam.last_maps, comp,
+                                      cfg)
 
     # past SMALL_GRAPH_POSES poses the closer solves on the card: finalize()
     # does so here, on the path
@@ -2046,6 +2234,7 @@ def phase_loop_noisy(dev, sigma: float = NOISY_SIGMA_M,
     slam.flush()
     torch.cuda.synchronize()
     counts = _read_launch_counts()
+    print(f"[loop-noisy] {_one_f_a_call('loop-noisy', counts)}")
     before_final = (lc.num_loop_closures, lc.num_optimizations,
                     lc.num_rebases, lc.num_soft_integrations)
     slam.finalize()
@@ -2149,6 +2338,9 @@ def phase_cli_ledger(dev):
               + (f"; held-out mIoU of the weights {row['val_miou']}"
                  if "val_miou" in row else "")
               + f"; kernel launches {counts['cli_' + name]}")
+        print(f"[cli-ledger] {name}: " + (
+            _d_and_e_a_trip(name, counts["cli_" + name]) if "ranks" in row
+            else _one_f_a_call(name, counts["cli_" + name])))
     print("[cli-ledger] the RESULTS-format table:\n" + mr.table(rows))
     bad = []
     for name, (ate_lim, trel_lim) in LEDGER_LIMITS.items():
@@ -3269,7 +3461,8 @@ def _cli(argv):
 def _sum_launches(ranks) -> dict:
     """The ranks' launch counts summed, in ``_read_launch_counts``' form."""
     singles = ("bilateral_filter", "zbuffer_cells", "knn_clean_image",
-               "icp_products", "gn_update", "gn_loop")
+               "icp_products", "gn_update", "gn_loop", "evaluate_calls",
+               "build_rows_on_cuda")
     out = {k: 0 for k in singles}
     out["zbuffer_cells_by_shape"] = {}
     for r in ranks:
@@ -3337,10 +3530,13 @@ def phase_sharded(dev, td):
           f"{row['final_error_m']:.4f} m; closures {closures}; "
           f"{_loop_line(err)}; creations dropped {row['creations_dropped']}")
     _rank_lines("sharded", ranks, row["scans"])
+    print(f"[sharded] {_d_and_e_a_trip('sharded', counts)}")
     _zero_launch_counts()
     single = mr.run_row("loop")
     torch.cuda.synchronize()
     single_counts = _read_launch_counts()
+    print(f"[sharded] one device: "
+          f"{_one_f_a_call('sharded one device', single_counts)}")
     print(f"[sharded] the same run on one device: "
           f"{single['scans_per_sec']:.2f} scans/s, steady-state "
           f"{single['steady_scans_per_sec']} scans/s; ATE "
@@ -3355,6 +3551,78 @@ def phase_sharded(dev, td):
                              f"{row['creations_dropped']} dropped, ATE "
                              f"{row['ate_rmse_m']} m (limit {limit})")
     return counts, single_counts, np.asarray(ranks[0]["poses"])
+
+
+# [sharded-syncs]: the scans stepped before counting, and those counted
+SYNC_SCANS = (4, 8)
+
+
+def _count_syncs(slam, n_warm: int, n_counted: int) -> dict:
+    """``process_scan`` over ``[main]``'s first scans (``odometry_config()``,
+    the world and circle of phase 5) on ``slam``; each counted step's
+    synchronizing CUDA operations (sync debug mode over the whole step, as
+    ``_SyncTally``), its ``to_host`` reads and its Gauss-Newton iterations
+    (fetched statistics), a scan."""
+    from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
+                                                       default_world,
+                                                       render_scan)
+    n = n_warm + n_counted
+    world = default_world(seed=0, extent=45.0)
+    gt = circular_trajectory(n, radius=18.0, step=1.5, device=slam.device)
+    scans = [render_scan(world, gt[i], slam.cfg.data) for i in range(n)]
+    out = {"syncs": 0, "reads": 0, "iterations": 0}
+    for i, sc in enumerate(scans):
+        def step(sc=sc):
+            slam.process_scan(sc.points, sc.labels, sc.probs, sc.valid)
+        if i < n_warm:
+            step()
+            continue
+        reads0 = to_host.count
+        out["syncs"] += len(_sync_warnings(step))
+        out["reads"] += to_host.count - reads0
+        out["iterations"] += slam.statistics[-1]["icp-iterations"]
+    return {k: v / n_counted for k, v in out.items()}
+
+
+def _sharded_sync_rank(rank, device, n_warm, n_counted):
+    """One rank of ``[sharded-syncs]``: ``_count_syncs`` of a
+    ``ShardedSurfelSLAM`` on ``[main]``'s cell (loop closure off), and the
+    rank's launches."""
+    from semantic_suma_tpu_torch.cli import _launch_counts
+    from semantic_suma_tpu_torch.config import odometry_config
+    from semantic_suma_tpu_torch.parallel import sharding as sh
+    slam = sh.ShardedSurfelSLAM(odometry_config(),
+                                sh.make_mesh(device=device),
+                                enable_loop_closure=False)
+    return {**_count_syncs(slam, n_warm, n_counted),
+            "launches": _launch_counts()}
+
+
+def phase_sharded_syncs(dev):
+    """``[sharded-syncs]``: a sharded scan's synchronizations and host reads
+    (two ranks on the one card over gloo, ``[main]``'s cell and scans)
+    beside the one-device run's (``SurfelSLAM`` on the same scans). The
+    sharded step reads ``done`` once a Gauss-Newton iteration and its
+    branch flags once; gloo's all-reduces of CUDA tensors stage through the
+    host. Asserts that the ranks ran their Gauss-Newton on kernels D and
+    E."""
+    from semantic_suma_tpu_torch.config import odometry_config
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.parallel.distributed import launch
+    ranks = launch(_sharded_sync_rank, 2, SYNC_SCANS, timeout_s=300,
+                   join_timeout_s=600)
+    one = _count_syncs(SurfelSLAM(odometry_config(), device=dev), *SYNC_SCANS)
+    print(f"[sharded-syncs] [main]'s cell, {SYNC_SCANS[1]} scans counted "
+          f"after {SYNC_SCANS[0]}, a scan: two ranks on one card over gloo "
+          + "; ".join(f"rank {r}: synchronizing operations (CUDA sync debug "
+                      f"mode, the whole step) {x['syncs']:.3f}, to_host "
+                      f"reads {x['reads']:.3f}, Gauss-Newton iterations "
+                      f"{x['iterations']:.2f}" for r, x in enumerate(ranks))
+          + f"; one device (SurfelSLAM): {one['syncs']:.3f}, "
+          f"{one['reads']:.3f}, {one['iterations']:.2f}")
+    print(f"[sharded-syncs] "
+          f"{_d_and_e_a_trip('sharded-syncs', _sum_launches(ranks))}")
 
 
 NCCL_SCANS = 20
@@ -3387,6 +3655,8 @@ def phase_sharded_nccl(dev):
             raise AssertionError(f"expected {b}, ran {ranks[0]['backend']}")
         poses[b] = np.asarray(ranks[0]["poses"])
         counts[b] = _sum_launches(ranks)
+    for b in ("nccl", "gloo"):
+        print(f"[sharded-nccl] {b}: {_d_and_e_a_trip(b, counts[b])}")
     same = np.array_equal(poses["nccl"], poses["gloo"])
     print(f"[sharded-nccl] one rank over nccl (the backend rule's choice) "
           f"and over gloo, {NCCL_SCANS} "
@@ -3427,11 +3697,13 @@ def phase_sharded_checkpoint(dev, td, full):
     more = _sum_launches(cli.last_ranks)
     counts["zbuffer_cells"] += more["zbuffer_cells"]
     for k in ("bilateral_filter", "knn_clean_image", "icp_products",
-              "gn_update", "gn_loop"):
+              "gn_update", "gn_loop", "evaluate_calls", "build_rows_on_cuda"):
         counts[k] += more[k]
     for shape, n in more["zbuffer_cells_by_shape"].items():
         by = counts["zbuffer_cells_by_shape"]
         by[shape] = by.get(shape, 0) + n
+    print(f"[sharded-checkpoint] both runs: "
+          f"{_d_and_e_a_trip('sharded-checkpoint', counts)}")
     save_s = float(re.search(r"checkpoint saved in ([\d.]+) s", err1)[1])
     load_s = float(re.search(r"checkpoint loaded in ([\d.]+) s", err2)[1])
     n = CHECKPOINT_STOP
@@ -3779,6 +4051,7 @@ def main() -> int:
     paths["cli_plots"] = timed("cli-plots", phase_cli_plots, dev)
     paths["sharded"], paths["sharded_single_device"], full = timed(
         "sharded", phase_sharded, dev, td)
+    timed("sharded-syncs", phase_sharded_syncs, dev)
     paths["sharded_nccl"] = timed("sharded-nccl", phase_sharded_nccl, dev)
     paths["sharded_checkpoint"] = timed(
         "sharded-checkpoint", phase_sharded_checkpoint, dev, td, full)
@@ -3795,8 +4068,12 @@ def main() -> int:
     for rec, key in ((rec_d, "icp_products"), (rec_e, "gn_update"),
                      (rec_f, "gn_loop")):
         rec["launches_by_path"] = {k: v[key] for k, v in paths.items()}
+    rec_f["evaluate_launches_by_path"] = {k: v["evaluate_calls"]
+                                          for k, v in paths.items()}
     verify = real.pop("icp-verify")
     f_verify = real.pop("gn-loop-verify")
+    s_verify = real.pop("sharded-verify")
+    rec_f["evaluate_max_scaled_err"] = real.pop("evaluate")["rel"]
     rec_f["max_abs_err"] = max(rec_f["max_abs_err"], f_verify["plain_pose"],
                                f_verify["plain_t"])
     rec_f["max_scaled_err"] = max(rec_f["max_scaled_err"],
@@ -3804,8 +4081,10 @@ def main() -> int:
     rec_d["max_abs_err"] = max(rec_d["max_abs_err"], verify["d_abs"])
     rec_d["max_scaled_err"] = max(rec_d["max_scaled_err"],
                                   verify["d_scaled"])
-    rec_e["max_abs_err"] = max(rec_e["max_abs_err"], verify["e_pose"])
-    rec_e["max_scaled_err"] = max(rec_e["max_scaled_err"], verify["e_rel"])
+    rec_e["max_abs_err"] = max(rec_e["max_abs_err"], verify["e_pose"],
+                               s_verify["pose_1"])
+    rec_e["max_scaled_err"] = max(rec_e["max_scaled_err"], verify["e_rel"],
+                                  s_verify["rel_1"])
     for rec in recs_b:
         shape = (rec["n"], rec["n_flags"])
         rec["launches_by_path"] = {
@@ -3819,23 +4098,29 @@ def main() -> int:
     # a kernel of a path must have run on it; a shape that no path launches
     # is held against its plain version above and listed apart, with 0
     # launches: a KITTI scan (the exported synthetic scans of phase 11 hold
-    # fewer points, each file its own count), the two-stream render (the
-    # loop path composes in image space), and kernels D and E, which kernel
-    # F replaced on every path (the sharded step's loop runs on the host)
+    # fewer points, each file its own count) and the two-stream render (the
+    # loop path composes in image space). Kernels D and E run the sharded
+    # paths' Gauss-Newton, kernel F every other
     never = [r["shape"] if r["name"] == "zbuffer_cells" else r["name"]
              for r in off_path]
-    if never != ["projection-kitti", "render-composed", "icp_products",
-                 "gn_update"]:
+    if never != ["projection-kitti", "render-composed"]:
         raise AssertionError(f"launched on no path: {never}; only the KITTI "
-                             "scan, the two-stream render and kernels D and "
-                             "E may be")
+                             "scan and the two-stream render may be")
+    # no path linearizes with the plain version (build_rows on the card)
+    plain = {k: v["build_rows_on_cuda"] for k, v in paths.items()}
+    print(f"[plain] build_rows on CUDA tensors over {len(plain)} paths: "
+          f"{sum(plain.values())}")
+    if any(plain.values()):
+        raise AssertionError(f"build_rows ran on the card: {plain}")
     keys = ("name", "shape", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "max_scaled_err", "ms",
             "eager_ms", "dead_ms", "earlier_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "real_ms", "real_eager_ms",
             "real_bound_ms", "equal_to_d_and_e", "iteration_ms",
             "bound_rereading_ms", "grid", "gn_call_ms", "gn_call_host_ms",
-            "gn_trips_ms", "gn_trips_host_ms", "gn_host_loop_ms")
+            "gn_trips_ms", "gn_trips_host_ms", "gn_host_loop_ms",
+            "sharded_equal_to_f", "evaluate_launches_by_path",
+            "evaluate_max_scaled_err")
     print(json.dumps({"held_off_path": [{k: r[k] for k in keys if k in r}
                                         for r in off_path]}))
     print(_smi("name,power.limit"))

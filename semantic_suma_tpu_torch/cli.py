@@ -383,8 +383,12 @@ last_ranks: list = []
 
 
 def _launch_counts() -> dict:
+    """The kernels' launches in this process, with the calls of
+    ``ops.icp.evaluate`` (one launch of kernel F each on a card) and of its
+    plain linearization on CUDA tensors (none on a path)."""
     from .ops.bilateral import bilateral_filter
-    from .ops.icp import gn_loop, gn_update, icp_products
+    from .ops.icp import (evaluate, gn_loop, gn_update, icp_products,
+                          plain_on_cuda)
     from .ops.knn import knn_clean_image
     from .ops.zbuffer import zbuffer_cells
     return {"bilateral_filter": bilateral_filter.launches,
@@ -393,7 +397,9 @@ def _launch_counts() -> dict:
             "knn_clean_image": knn_clean_image.launches,
             "icp_products": icp_products.launches,
             "gn_update": gn_update.launches,
-            "gn_loop": gn_loop.launches}
+            "gn_loop": gn_loop.launches,
+            "evaluate_calls": evaluate.calls,
+            "build_rows_on_cuda": plain_on_cuda["build_rows"]}
 
 
 def _run_sharded(args, device, backend=None) -> int:

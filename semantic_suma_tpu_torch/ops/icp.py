@@ -19,10 +19,16 @@ against them. On a CPU tensor :func:`gn_loop` runs the plain versions
 ends there (reading a CPU tensor waits for nothing).
 
 With a ``group`` (the sharded pipeline, ``parallel/``),
-:func:`gauss_newton_host` runs: each rank linearizes its slice of the image
-rows, the products and statistics are summed over the ranks once per
-iteration, and every rank reads the reduced stop (one host read an
-iteration), so that the ranks stay in lockstep.
+:func:`gauss_newton_sharded` runs kernels D and E on one state: each rank
+linearizes its slice of the image rows with D, the partial sums are added
+elementwise over the ranks once per iteration, E updates every rank's state
+from the same bits, and every rank reads ``done`` (one host read an
+iteration), so that the ranks stay in lockstep. :func:`evaluate` is kernel
+F's first iteration. :func:`gauss_newton_host`, the loop on the host over
+:func:`build_rows`, is kept for ``tools/gn_trace`` and the card's timings;
+``plain_on_cuda`` counts the calls of :func:`build_rows` on CUDA tensors,
+which no path of the card makes.
+
 Twist convention ``x = [v, omega]``, increment applied on the left:
 ``pose <- exp(x) @ pose``.
 """
@@ -74,7 +80,7 @@ class IcpStats(NamedTuple):
 class IcpResult(NamedTuple):
     pose: torch.Tensor        # [4,4] final increment estimate
     stats: IcpStats           # stats at the last evaluated linearization
-    iterations: torch.Tensor  # int32, on the device (gauss_newton_host: int)
+    iterations: torch.Tensor  # int32 on the device (with a group: an int)
 
 
 def _pack_model_image(model: Maps) -> torch.Tensor:
@@ -152,6 +158,8 @@ def build_rows(pose: torch.Tensor, data: Maps, model: Maps, icp: IcpConfig,
     A^T A[0:6,0:6] = J^T W J and A^T A[0:6,6] = J^T W f."""
     h, w = data.vertex.shape[:2]
     p = h * w
+    if data.vertex.is_cuda:
+        plain_on_cuda["build_rows"] += 1
     v_data = data.vertex.reshape(p, 3)
     n_data = data.normal.reshape(p, 3)
     d_valid = (data.vertex_valid & data.normal_valid).reshape(p)
@@ -223,6 +231,12 @@ def build_rows(pose: torch.Tensor, data: Maps, model: Maps, icp: IcpConfig,
         invalid=torch.sum(d_valid & ~assoc).to(torch.int32),
     )
     return rows, stats
+
+
+# calls of build_rows on CUDA tensors since the process began: kernel D's
+# plain version, which no path of the card runs (the card's checks call it
+# on purpose, and count those calls apart)
+plain_on_cuda = {"build_rows": 0}
 
 
 def jacobian_products(pose: torch.Tensor, data: Maps, model: Maps,
@@ -627,18 +641,6 @@ def gauss_newton_latched(data: Maps, model: Maps, t0: torch.Tensor,
     return result
 
 
-def _sum_over(group, ata: torch.Tensor, stats: IcpStats):
-    """``ata`` and the statistics summed over the ranks of ``group`` in one
-    all-reduce (the counts travel as float32, exact below 2^24)."""
-    vec = group.sum(torch.cat([ata.reshape(-1), torch.stack(
-        [s.to(torch.float32).reshape(()) for s in stats])]))
-    n = ata.numel()
-    summed = IcpStats(*(vec[n + j].to(s.dtype) if s.dtype.is_floating_point
-                        else torch.round(vec[n + j]).to(s.dtype)
-                        for j, s in enumerate(stats)))
-    return vec[:n].reshape(ata.shape), summed
-
-
 def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
                  model_cfg: DataConfig, semantic: bool = True,
                  max_iterations: int | None = None,
@@ -652,28 +654,57 @@ def gauss_newton(data: Maps, model: Maps, t0: torch.Tensor, icp: IcpConfig,
     calls and their iterations for the run reports.
 
     ``group`` (a ``parallel.distributed.Group``): ``data`` holds this rank's
-    rows only, and :func:`gauss_newton_host` sums ``A^T A`` and the
-    statistics over the ranks before the solve and the stopping test (the
-    JAX package's ``psum`` over ``axis``)."""
+    rows only, and :func:`gauss_newton_sharded` sums the linearization over
+    the ranks before the solve and the stopping test (the JAX package's
+    ``psum`` over ``axis``)."""
     if group is not None:
-        return gauss_newton_host(data, model, t0, icp, model_cfg, semantic,
-                                 max_iterations, group)
+        return gauss_newton_sharded(data, model, t0, icp, model_cfg, semantic,
+                                    max_iterations, group)
     return gauss_newton_latched(data, model, t0, icp, model_cfg, semantic,
                                 max_iterations)
+
+
+def gauss_newton_sharded(data: Maps, model: Maps, t0: torch.Tensor,
+                         icp: IcpConfig, model_cfg: DataConfig,
+                         semantic: bool, max_iterations: int | None,
+                         group) -> IcpResult:
+    """The loop over the ranks of ``group`` on one :func:`gn_state`: each
+    iteration kernel D (:func:`icp_products`) linearizes this rank's rows
+    into its partial sums, ``group.sum`` adds the buffers elementwise over
+    the ranks (every rank's buffer has the same slots: the ranks hold equal
+    rows), and kernel E (:func:`gn_update`) sums the slots, solves, tests
+    and updates the state; then the host reads ``done`` (one ``to_host`` an
+    iteration) and stops on it. Every rank runs E on the same bits, so every
+    rank holds the same state and leaves at the same iteration, and the
+    next ``group.sum`` finds them all. On a CPU tensor D's plain version
+    gives one row a rank and E's plain version the rest. ``iterations`` is
+    a Python int: the host counts the reads."""
+    max_iter = icp.max_iterations if max_iterations is None else max_iterations
+    model_img = _pack_model_image(model)
+    state_f, state_i = gn_state(t0)
+    buf = None
+    k = 0
+    while k < max_iter:
+        buf = icp_products(state_f, state_i, data, model_img, icp, model_cfg,
+                           semantic, out=buf)
+        gn_update(group.sum(buf), state_f, state_i, icp)
+        k += 1
+        if to_host(state_i[1]):
+            break
+    _count_call(k)
+    return gn_result(state_f, state_i)._replace(iterations=k)
 
 
 def gauss_newton_host(data: Maps, model: Maps, t0: torch.Tensor,
                       icp: IcpConfig, model_cfg: DataConfig,
                       semantic: bool = True,
-                      max_iterations: int | None = None,
-                      group=None) -> IcpResult:
+                      max_iterations: int | None = None) -> IcpResult:
     """The loop on the host: each iteration builds the rows
-    (:func:`build_rows`), reduces them with ``rows.T @ rows`` (summed over
-    ``group``'s ranks), solves (:func:`_solve_spd`) and reads its stopping
-    test to the host (one ``to_host`` an iteration). The sharded pipeline
-    runs it, since every rank must read the reduced stop to stay in
-    lockstep, and so does ``tools/gn_trace``, which records each
-    iteration. ``iterations`` is a Python int."""
+    (:func:`build_rows`), reduces them with ``rows.T @ rows``, solves
+    (:func:`_solve_spd`) and reads its stopping test to the host (one
+    ``to_host`` an iteration). ``tools/gn_trace`` runs it to record each
+    iteration, and the card's checks time it beside kernel F; no path runs
+    it. ``iterations`` is a Python int."""
     max_iter = icp.max_iterations if max_iterations is None else max_iterations
     model_img = _pack_model_image(model)
     pose = t0.to(torch.float32)
@@ -688,8 +719,6 @@ def gauss_newton_host(data: Maps, model: Maps, t0: torch.Tensor,
         rows, stats = build_rows(pose, data, model, icp, model_cfg, k,
                                  semantic, model_img=model_img)
         ata = rows.T @ rows
-        if group is not None:
-            ata, stats = _sum_over(group, ata, stats)
         jtj, jtf = ata[:6, :6], ata[:6, 6]
         delta = _solve_spd(jtj, -jtf)
         err = stats.error
@@ -710,8 +739,17 @@ def gauss_newton_host(data: Maps, model: Maps, t0: torch.Tensor,
 
 def evaluate(pose: torch.Tensor, data: Maps, model: Maps, icp: IcpConfig,
              model_cfg: DataConfig, semantic: bool = True) -> IcpStats:
-    """Residual statistics at a fixed pose (loop-closure verification): one
-    linearization, returned as device tensors with no host read."""
-    _, stats = build_rows(pose, data, model, icp, model_cfg, 0, semantic)
-    return stats
+    """Residual statistics at a fixed pose (loop-closure verification): the
+    JAX package's one linearization at iteration 0, run as kernel F's first
+    iteration (:func:`gn_loop` with ``max_iterations=1``: on a card one
+    launch), whose update writes the statistics of the linearization it
+    consumed into the state. Returned as views of the state on the device,
+    with no host read; ``evaluate.calls`` counts the calls."""
+    state_f, state_i = gn_state(pose)
+    gn_loop(state_f, state_i, data, _pack_model_image(model), icp, model_cfg,
+            semantic, 1)
+    evaluate.calls += 1
+    return gn_result(state_f, state_i).stats
 
+
+evaluate.calls = 0

@@ -9,9 +9,10 @@ steps on its own part of the map and meets the other ranks in collectives:
   block-paged ``MapState`` (arena, active view, fresh region; paging, spill
   and compaction stay on the rank). The scan is replicated; pixel ``p``
   creates its surfel on rank ``p % D``.
-* **ICP reduction**: each rank linearizes its ``H/D`` image rows and the
-  ``[8, 8]`` products and the statistics are summed over the ranks once per
-  Gauss-Newton iteration, so every rank takes the same step.
+* **ICP reduction**: each rank linearizes its ``H/D`` image rows (kernel
+  D) and the partial sums of the products and the statistics are summed
+  over the ranks once per Gauss-Newton iteration, so every rank takes the
+  same step (kernel E; ``ops.icp.gauss_newton_sharded``).
 * **Rendering**: every rank renders its shard; the candidates merge by
   depth (a gather and an argmin over the ranks, the lowest rank on a tie).
 * **Segmenter**: data-parallel training over the ``data`` axis that

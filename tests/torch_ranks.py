@@ -337,6 +337,48 @@ def suite(rank, device, cfg, scans_file, forced_file, jax_ckpt, out_dir,
         "train": train_step(rank, device, batch_file, sides_file)}
 
 
+def sharded_gauss_newton(rank, device, maps_file, cases):
+    """``ops.icp.gauss_newton(..., group=)`` on this rank's share of the
+    data rows, for each case of ``cases`` (``{name: (max_iterations,
+    IcpConfig fields)}``) on the maps of ``maps_file``
+    (``{name}/data/{field}``, ``{name}/model/{field}``, ``inc``), at
+    ``SumaConfig().small()``: the pose, the statistics, the iterations,
+    the host reads the call made and the bits of the pose and the
+    statistics (the lockstep check)."""
+    from dataclasses import replace
+
+    from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.ops import icp
+    from semantic_suma_tpu_torch.parallel.distributed import Group
+    z = np.load(maps_file)
+    group = Group.world()
+    cfg = SumaConfig().small()
+    inc = torch.as_tensor(z["inc"])
+    out = {}
+    for name, (cap, fields) in cases.items():
+        def maps(which):
+            return icp.Maps(*(torch.as_tensor(z[f"{name}/{which}/{f}"])
+                              for f in icp.Maps._fields))
+        data = maps("data")
+        rows = data.vertex.shape[0] // group.size
+        mine = icp.Maps(*(a[group.rank * rows:(group.rank + 1) * rows]
+                          for a in data))
+        reads0 = to_host.count
+        res = icp.gauss_newton(mine, maps("model"), inc,
+                               replace(cfg.icp, **fields), cfg.model,
+                               max_iterations=cap, group=group)
+        reads = to_host.count - reads0
+        bits = torch.cat([res.pose.reshape(-1).view(torch.int32),
+                          *(s.reshape(1).view(torch.int32)
+                            for s in res.stats)])
+        out[name] = {"pose": res.pose.numpy().copy(),
+                     "stats": {k: v.item()
+                               for k, v in res.stats._asdict().items()},
+                     "iterations": res.iterations, "reads": reads,
+                     "bits": bits.numpy().copy()}
+    return out
+
+
 def fail_on_rank(rank, device, which, message):
     if rank == which:
         raise RuntimeError(message)
