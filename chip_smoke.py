@@ -1865,34 +1865,41 @@ def _scan_kind(new_stats, verify_dispatched: bool, gn_calls: int) -> str:
     return "cruising"
 
 
-def _gn_iterations_now():
-    """The card's count of Gauss-Newton iterations so far, a device tensor
-    (no read), or 0 before the first call."""
-    from semantic_suma_tpu_torch.ops.icp import gn_device_iterations
-    return sum(gn_device_iterations.values())
-
-
 def _loop_feeder(slam, rows):
     """``feed(scan) -> kind``: one ``process_scan_async`` call, with a row
     (kind, host reads, gauss_newton calls, iterations, seconds) appended to
-    ``rows``. The iterations are the difference of the card's counter
-    before and after, a device tensor that ``_print_call_types`` reads."""
+    ``rows``. The iterations are the sum of the call's latched loops'
+    ``iterations`` (``icp.gauss_newton_latched`` wrapped for the call), a
+    device tensor that ``_print_call_types`` reads, or 0."""
     from semantic_suma_tpu_torch.device import to_host
+    from semantic_suma_tpu_torch.ops import icp
     from semantic_suma_tpu_torch.ops.icp import gn_counts
+    latched = icp.gauss_newton_latched
 
     def feed(s):
-        before = (to_host.count, gn_counts["calls"],
-                  _gn_iterations_now(), len(slam.statistics),
+        its = []
+
+        def counted(*args, **kwargs):
+            result = latched(*args, **kwargs)
+            its.append(result.iterations)
+            return result
+
+        before = (to_host.count, gn_counts["calls"], len(slam.statistics),
                   slam.stopwatch.stats["verify-dispatch"].count)
+        icp.gauss_newton_latched = counted
         t0 = time.perf_counter()
-        slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
-        dt = time.perf_counter() - t0
+        try:
+            slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
+        finally:
+            dt = time.perf_counter() - t0
+            icp.gauss_newton_latched = latched
         calls = gn_counts["calls"] - before[1]
         kind = _scan_kind(
-            slam.statistics[before[3]:],
-            slam.stopwatch.stats["verify-dispatch"].count > before[4], calls)
+            slam.statistics[before[2]:],
+            slam.stopwatch.stats["verify-dispatch"].count > before[3], calls)
         rows.append((kind, to_host.count - before[0], calls,
-                     _gn_iterations_now() - before[2], dt))
+                     sum(k.to(torch.int64) if isinstance(k, torch.Tensor)
+                         else k for k in its), dt))
         return kind
 
     return feed

@@ -46,6 +46,7 @@ from ..ops import icp as icp_ops
 from ..ops.icp import Maps
 from ..ops.pyramid import gauss_newton_pyramid
 from ..utils import lie
+from ..utils.timing import span
 from . import surfel_map as sm
 from .posegraph import Posegraph
 
@@ -276,48 +277,45 @@ class LoopCloser:
         the timed laps. The two view caches are dropped afterwards."""
         if not getattr(slam, "supports_fused_verify", False):
             return
-        t0 = time.perf_counter()
-        if self._fused is None:
-            self._build_fused()
-        eye = np.eye(4, dtype=np.float32)
-        eye_t = self._t(eye)
-        maps = slam.last_maps
-        # full view (candidate search) + reduced view (chained verify)
-        view_f, thr_f = slam.old_view(eye, timestamp=0)
-        self._fused[1](view_f, thr_f, eye_t, torch.stack([eye_t] * 3), maps,
-                       maps, 0.0)
-        self._fused[0](view_f, thr_f, eye_t, maps, maps, eye_t, 0.0)
-        if hasattr(slam, "verify_view"):
-            view_v, thr_v = slam.verify_view(eye, timestamp=0)
-            self._fused[2](view_v, thr_v, eye_t, maps, maps, eye_t, eye_t,
-                           0.0)
-        for dev in {str(self._solve_device(2)), str(self.device)}:
-            g = Posegraph()
-            g.set_initial(0, eye)
-            g.set_initial(1, eye)
-            g.add_edge(0, 1, eye, robust=True)
-            g.optimize(robust_kernel=self.cfg.loop.robust_kernel,
-                       robust_delta=self.cfg.loop.robust_delta, device=dev)
-        if hasattr(slam, "rebase"):
-            cur = slam.poses[-1] if slam.poses else eye
-            arr = np.stack(slam.poses) if slam.poses else eye[None]
-            slam.rebase(arr, cur)
-        if hasattr(slam, "compact_map"):
-            slam.compact_map()
-        # composed-tracking path (lag-0 sync re-entry)
-        if hasattr(slam, "render_old_maps"):
-            sm.compose_views(slam.render_old_maps(eye), maps,
-                             self.cfg.loop.max_loop_closure_distance)
-        # the identity-centered view caches are stale the moment the vehicle
-        # is >8 m from the origin; drop them so the first real verification
-        # builds fresh ones
-        for cache in (getattr(slam, "_old_cache", None),
-                      getattr(slam, "_verify_cache", None)):
-            if cache is not None:
-                cache._view = None
-        sw = getattr(slam, "stopwatch", None)
-        if sw is not None:
-            sw.record("loop-warmup", time.perf_counter() - t0)
+        with span(getattr(slam, "stopwatch", None), "loop-warmup"):
+            if self._fused is None:
+                self._build_fused()
+            eye = np.eye(4, dtype=np.float32)
+            eye_t = self._t(eye)
+            maps = slam.last_maps
+            # full view (candidate search) + reduced view (chained verify)
+            view_f, thr_f = slam.old_view(eye, timestamp=0)
+            self._fused[1](view_f, thr_f, eye_t, torch.stack([eye_t] * 3),
+                           maps, maps, 0.0)
+            self._fused[0](view_f, thr_f, eye_t, maps, maps, eye_t, 0.0)
+            if hasattr(slam, "verify_view"):
+                view_v, thr_v = slam.verify_view(eye, timestamp=0)
+                self._fused[2](view_v, thr_v, eye_t, maps, maps, eye_t, eye_t,
+                               0.0)
+            for dev in {str(self._solve_device(2)), str(self.device)}:
+                g = Posegraph()
+                g.set_initial(0, eye)
+                g.set_initial(1, eye)
+                g.add_edge(0, 1, eye, robust=True)
+                g.optimize(robust_kernel=self.cfg.loop.robust_kernel,
+                           robust_delta=self.cfg.loop.robust_delta, device=dev)
+            if hasattr(slam, "rebase"):
+                cur = slam.poses[-1] if slam.poses else eye
+                arr = np.stack(slam.poses) if slam.poses else eye[None]
+                slam.rebase(arr, cur)
+            if hasattr(slam, "compact_map"):
+                slam.compact_map()
+            # composed-tracking path (lag-0 sync re-entry)
+            if hasattr(slam, "render_old_maps"):
+                sm.compose_views(slam.render_old_maps(eye), maps,
+                                 self.cfg.loop.max_loop_closure_distance)
+            # the identity-centered view caches are stale the moment the
+            # vehicle is >8 m from the origin; drop them so the first real
+            # verification builds fresh ones
+            for cache in (getattr(slam, "_old_cache", None),
+                          getattr(slam, "_verify_cache", None)):
+                if cache is not None:
+                    cache._view = None
 
     # ------------------------------------------------------------------
     def dispatch_verify(self, slam, idx: int) -> None:
@@ -329,32 +327,31 @@ class LoopCloser:
         drains; the composed old+new model render replaces the model maps
         immediately (device reference, no host work), giving composed
         tracking for the next scan."""
-        t0 = time.perf_counter()
-        if self._fused is None:
-            self._build_fused()
-        if self._pose_old_dev is None:
-            # seed the carry from the host anchor (chain start; host poses
-            # are device-frame @ frame_correction)
-            corr = getattr(slam, "frame_correction", None)
-            anchor = self.pose_old
-            if corr is not None:
-                anchor = np.linalg.inv(corr) @ anchor
-            self._pose_old_dev = self._t(anchor)
-        if hasattr(slam, "verify_view"):
-            view, thr = slam.verify_view(self.pose_old, timestamp=idx + 1)
-        else:
-            view, thr = slam.old_view(self.pose_old, timestamp=idx + 1)
-        vec, comp_out, pose_old_next = self._fused[2](
-            view, thr, self._pose_old_dev, slam.last_maps, slam.model_maps,
-            self._t(slam.last_increment), self._t(slam.pose),
-            slam._conf_at(idx))
-        self._pose_old_dev = pose_old_next
-        self._verify_queue.append((idx, AsyncFetch(vec)))
-        if self.cfg.loop.compose_rendering:
-            slam.set_model_maps(comp_out)
-        sw = getattr(slam, "stopwatch", None)
-        if sw is not None:
-            sw.record("verify-dispatch", time.perf_counter() - t0)
+        with span(getattr(slam, "stopwatch", None), "verify-dispatch"):
+            if self._fused is None:
+                self._build_fused()
+            if self._pose_old_dev is None:
+                # seed the carry from the host anchor (chain start; host
+                # poses are device-frame @ frame_correction)
+                corr = getattr(slam, "frame_correction", None)
+                anchor = self.pose_old
+                if corr is not None:
+                    anchor = np.linalg.inv(corr) @ anchor
+                self._pose_old_dev = self._t(anchor)
+            if hasattr(slam, "verify_view"):
+                view, thr = slam.verify_view(self.pose_old,
+                                             timestamp=idx + 1)
+            else:
+                view, thr = slam.old_view(self.pose_old, timestamp=idx + 1)
+            vec, comp_out, pose_old_next = self._fused[2](
+                view, thr, self._pose_old_dev, slam.last_maps,
+                slam.model_maps, self._t(slam.last_increment),
+                self._t(slam.pose),
+                slam._conf_at(idx))
+            self._pose_old_dev = pose_old_next
+            self._verify_queue.append((idx, AsyncFetch(vec)))
+            if self.cfg.loop.compose_rendering:
+                slam.set_model_maps(comp_out)
 
     # ------------------------------------------------------------------
     def _build_fused(self):
@@ -535,196 +532,197 @@ class LoopCloser:
         are deferred and ``sync_request`` is raised: the host loop drains the
         pipeline and re-enters synchronously on the next scan. Deferring a
         candidate search is harmless (search repeats every idle scan).
+
+        On every scan but the first the host-clock phases are the span
+        ``loop`` (its lap ``loop``, the statistic ``loop-time``) and its
+        children ``loop/bookkeep``, ``loop/verify``, ``loop/edges``,
+        ``loop/opt``, ``loop/search`` and ``loop/compose``.
         """
-        t_loop0 = time.perf_counter()
-        sw = getattr(slam, "stopwatch", None)
-        _mark = [t_loop0]
-
-        def _lap(label):
-            if sw is not None:
-                t = time.perf_counter()
-                sw.record(label, t - _mark[0])
-                _mark[0] = t
-
-        cfg = self.cfg.loop
         ts = slam.timestamp - 1  # index of the scan just processed
-        stats: dict = {}
-        deferred = False
-
-        increment = np.asarray(info.increment)
-        pose = np.asarray(info.pose)
-
-        # odometry factor
         if ts == 0:
+            # odometry factor
+            pose = np.asarray(info.pose)
             self.posegraph.set_initial(0, pose)
             self.pose_old = pose.copy()
             self.last_pose_old = pose.copy()
             return {"loop-count": 0}
-        self.posegraph.set_initial(
-            ts, self.posegraph.pose(ts - 1) @ increment)
-        self.posegraph.add_edge(ts - 1, ts, increment, self._info)
+        t_loop0 = time.perf_counter()
+        sw = getattr(slam, "stopwatch", None)
+        with span(sw, "loop"):
+            stats = self._scan_phases(slam, info, ts, lag, sw)
+        stats["loop-time"] = time.perf_counter() - t_loop0
+        return stats
 
-        # old-frame pose track: by default follows odometry
-        self.last_pose_old = self.pose_old
-        self.pose_old = pose.copy()
+    def _scan_phases(self, slam, info, ts: int, lag: int, sw) -> dict:
+        """:meth:`on_scan` of scan ``ts > 0``, phase by phase."""
+        cfg = self.cfg.loop
+        stats: dict = {}
+        deferred = False
+        with span(sw, "loop/bookkeep"):
+            increment = np.asarray(info.increment)
+            pose = np.asarray(info.pose)
+            # odometry factor
+            self.posegraph.set_initial(
+                ts, self.posegraph.pose(ts - 1) @ increment)
+            self.posegraph.add_edge(ts - 1, ts, increment, self._info)
 
-        self.time_without_loop += 1
+            # old-frame pose track: by default follows odometry
+            self.last_pose_old = self.pose_old
+            self.pose_old = pose.copy()
 
-        vr_new, or_new, res_new = self._ratios(info.stats)
+            self.time_without_loop += 1
 
-        _lap("loop/bookkeep")
+            vr_new, or_new, res_new = self._ratios(info.stats)
         # ---- phase A: verify pending candidates --------------------------
-        self._last_comp = None
-        qvec = None
-        while self._verify_queue and self._verify_queue[0][0] < ts:
-            self._verify_queue.popleft()  # stale entries (chain restarted)
-        if self._verify_queue and self._verify_queue[0][0] == ts:
-            qvec = np.asarray(self._verify_queue.popleft()[1].wait())
-        if self.chain_live and qvec is not None:
-            # pipelined path: the verification ran on device when this scan
-            # was dispatched (dispatch_verify); only host bookkeeping here.
-            # Works at ANY lag: the device carry kept the chain exact.
-            corr = getattr(slam, "frame_correction", None)
-            pose_old_new = qvec[34:50].reshape(4, 4).copy()
-            if corr is not None:
-                pose_old_new = corr @ pose_old_new
-            gates_ok = qvec[50] > 0
-            verified_this_scan = False
-            if gates_ok:
-                _, _, res_old = self._ratios(_host_stats(qvec[28:34]))
-                verified_this_scan = self._accept_verification(
-                    slam, ts, pose_old_new, res_old, res_new)
-            stats["loop-verifying"] = verified_this_scan
-        elif self.chain_live and lag > 0:
-            deferred = True  # the host loop recovers via sync_needed next scan
-        elif self.unverified or self.already_verified:
-            inc_log = getattr(info, "inc_log", None)
-            if inc_log is None:  # plain StepInfo (tests, other callers)
-                inc_log = lie.se3_log(torch.as_tensor(
-                    increment, dtype=torch.float32)).numpy()
-            if getattr(slam, "supports_fused_verify", False):
-                # one program, ONE fetch: already in flight when the host loop
-                # pre-dispatched it
-                pre, self._pre = self._pre, None
-                if pre is not None:
-                    fetch, comp = pre
-                else:
-                    if self._fused is None:
-                        self._build_fused()
-                    view, thr = slam.old_view(self.last_pose_old)
-                    vec, comp = self._fused[0](
-                        view, thr, self._t(self.last_pose_old),
-                        slam.last_maps, slam.model_maps,
-                        self._t(slam.last_increment),
-                        slam.confidence_threshold())
-                    fetch = AsyncFetch(vec)
-                v = np.asarray(fetch.wait())
-                inc_old = v[:16].reshape(4, 4)
-                log_old = v[16:22]
-                rstats = _host_stats(v[22:28])
-                cstats = _host_stats(v[28:34])
-                pose_old_new = v[34:50].reshape(4, 4)
-            else:
-                old_maps = self._render_old(slam, self.last_pose_old)
-                res = icp_ops.gauss_newton(
-                    slam.last_maps, old_maps, self._t(slam.last_increment),
-                    self.cfg.icp, self.cfg.model,
-                    semantic=self.cfg.semantic.enabled)
-                inc_old, log_old, rstats = _fetch_gn(res.pose, res.stats)
-                pose_old_new = cstats = comp = None
-            vr, orr, _ = self._ratios(rstats)
-            inc_diff = float(np.linalg.norm(inc_log - log_old))
-            verified_this_scan = False
-            if vr > cfg.min_valid_ratio and orr < cfg.max_outlier_ratio \
-                    and inc_diff < cfg.max_increment_difference:
-                if pose_old_new is None:
-                    pose_old_new = self.last_pose_old @ inc_old
-                    cstats = self._composed_residual(slam, pose_old_new,
-                                                     pose)
-                else:
-                    # composed view already rendered at pose_old_new by
-                    # the program: reusable for composed tracking
-                    self._last_comp = comp
-                    self._last_comp_pose = pose_old_new
-                _, _, res_old = self._ratios(cstats)
-                verified_this_scan = self._accept_verification(
-                    slam, ts, pose_old_new, res_old, res_new)
-            stats["loop-verifying"] = verified_this_scan
-
-        # ---- promotion ---------------------------------------------------
-        if not self.already_verified and \
-                len(self.unverified) >= cfg.min_verifications + 1:
-            self.verified.extend(self.unverified)
-            self.unverified.clear()
-            self.already_verified = True
-
-        _lap("loop/verify")
-        # ---- add verified edges ------------------------------------------
-        last_from = -1
-        for cand in self.verified:
-            if cand.frm != last_from:
-                last_from = cand.frm
-                self.loop_count += 1
-                self.num_loop_closures += 1
-            self.posegraph.add_edge(cand.frm, cand.to, cand.rel_pose,
-                                    self._info, robust=True)
-        self.verified.clear()
-
-        _lap("loop/edges")
-        # ---- optimize ----------------------------------------------------
-        # async (default): clone the graph and solve on a background host
-        # thread, integrating the result on a later scan. The launch itself
-        # is host-only, so it works at any pipeline lag.
-        if (self.loop_count > 6) or \
-                (self.loop_count > 0 and self.time_without_loop > 3):
-            if self.cfg.loop.async_optimize:
-                self._launch_optimize()
-            elif lag > 0:
+        with span(sw, "loop/verify"):
+            self._last_comp = None
+            qvec = None
+            while self._verify_queue and self._verify_queue[0][0] < ts:
+                # stale entries (chain restarted)
+                self._verify_queue.popleft()
+            if self._verify_queue and self._verify_queue[0][0] == ts:
+                qvec = np.asarray(self._verify_queue.popleft()[1].wait())
+            if self.chain_live and qvec is not None:
+                # pipelined path: the verification ran on device when this
+                # scan was dispatched (dispatch_verify); only host
+                # bookkeeping here. Works at ANY lag: the device carry kept
+                # the chain exact.
+                corr = getattr(slam, "frame_correction", None)
+                pose_old_new = qvec[34:50].reshape(4, 4).copy()
+                if corr is not None:
+                    pose_old_new = corr @ pose_old_new
+                gates_ok = qvec[50] > 0
+                verified_this_scan = False
+                if gates_ok:
+                    _, _, res_old = self._ratios(_host_stats(qvec[28:34]))
+                    verified_this_scan = self._accept_verification(
+                        slam, ts, pose_old_new, res_old, res_new)
+                stats["loop-verifying"] = verified_this_scan
+            elif self.chain_live and lag > 0:
+                # the host loop recovers via sync_needed next scan
                 deferred = True
-            else:
-                self._optimize_and_rebase(slam)
+            elif self.unverified or self.already_verified:
+                inc_log = getattr(info, "inc_log", None)
+                if inc_log is None:  # plain StepInfo (tests, other callers)
+                    inc_log = lie.se3_log(torch.as_tensor(
+                        increment, dtype=torch.float32)).numpy()
+                if getattr(slam, "supports_fused_verify", False):
+                    # one program, ONE fetch: already in flight when the host
+                    # loop pre-dispatched it
+                    pre, self._pre = self._pre, None
+                    if pre is not None:
+                        fetch, comp = pre
+                    else:
+                        if self._fused is None:
+                            self._build_fused()
+                        view, thr = slam.old_view(self.last_pose_old)
+                        vec, comp = self._fused[0](
+                            view, thr, self._t(self.last_pose_old),
+                            slam.last_maps, slam.model_maps,
+                            self._t(slam.last_increment),
+                            slam.confidence_threshold())
+                        fetch = AsyncFetch(vec)
+                    v = np.asarray(fetch.wait())
+                    inc_old = v[:16].reshape(4, 4)
+                    log_old = v[16:22]
+                    rstats = _host_stats(v[22:28])
+                    cstats = _host_stats(v[28:34])
+                    pose_old_new = v[34:50].reshape(4, 4)
+                else:
+                    old_maps = self._render_old(slam, self.last_pose_old)
+                    res = icp_ops.gauss_newton(
+                        slam.last_maps, old_maps,
+                        self._t(slam.last_increment), self.cfg.icp,
+                        self.cfg.model,
+                        semantic=self.cfg.semantic.enabled)
+                    inc_old, log_old, rstats = _fetch_gn(res.pose, res.stats)
+                    pose_old_new = cstats = comp = None
+                vr, orr, _ = self._ratios(rstats)
+                inc_diff = float(np.linalg.norm(inc_log - log_old))
+                verified_this_scan = False
+                if vr > cfg.min_valid_ratio and orr < cfg.max_outlier_ratio \
+                        and inc_diff < cfg.max_increment_difference:
+                    if pose_old_new is None:
+                        pose_old_new = self.last_pose_old @ inc_old
+                        cstats = self._composed_residual(slam, pose_old_new,
+                                                         pose)
+                    else:
+                        # composed view already rendered at pose_old_new by
+                        # the program: reusable for composed tracking
+                        self._last_comp = comp
+                        self._last_comp_pose = pose_old_new
+                    _, _, res_old = self._ratios(cstats)
+                    verified_this_scan = self._accept_verification(
+                        slam, ts, pose_old_new, res_old, res_new)
+                stats["loop-verifying"] = verified_this_scan
 
-        _lap("loop/opt")
-        # ---- phase C: search a new candidate -----------------------------
-        if self.time_without_loop > 3:
-            self.unverified.clear()
-            self.already_verified = False
-            self._pose_old_dev = None  # next chain re-seeds the carry
-            if lag > 0:
-                # the search ICP needs THIS scan's data maps on device;
-                # with scans in flight, only check the (host-side) trigger
-                # and ask the host loop to drain + re-enter synchronously:
-                # the search repeats next scan at lag 0
-                if self._closest_index(slam, info.pose) >= 0:
+            # ---- promotion -----------------------------------------------
+            if not self.already_verified and \
+                    len(self.unverified) >= cfg.min_verifications + 1:
+                self.verified.extend(self.unverified)
+                self.unverified.clear()
+                self.already_verified = True
+        # ---- add verified edges ------------------------------------------
+        with span(sw, "loop/edges"):
+            last_from = -1
+            for cand in self.verified:
+                if cand.frm != last_from:
+                    last_from = cand.frm
+                    self.loop_count += 1
+                    self.num_loop_closures += 1
+                self.posegraph.add_edge(cand.frm, cand.to, cand.rel_pose,
+                                        self._info, robust=True)
+            self.verified.clear()
+        # ---- optimize ----------------------------------------------------
+        with span(sw, "loop/opt"):
+            # async (default): clone the graph and solve on a background host
+            # thread, integrating the result on a later scan. The launch
+            # itself is host-only, so it works at any pipeline lag.
+            if (self.loop_count > 6) or \
+                    (self.loop_count > 0 and self.time_without_loop > 3):
+                if self.cfg.loop.async_optimize:
+                    self._launch_optimize()
+                elif lag > 0:
                     deferred = True
-            else:
-                found = self._search_candidate(slam, info, vr_new, or_new,
-                                               res_new)
-                stats["loop-candidate-found"] = found
-
-        _lap("loop/search")
+                else:
+                    self._optimize_and_rebase(slam)
+        # ---- phase C: search a new candidate -----------------------------
+        with span(sw, "loop/search"):
+            if self.time_without_loop > 3:
+                self.unverified.clear()
+                self.already_verified = False
+                self._pose_old_dev = None  # next chain re-seeds the carry
+                if lag > 0:
+                    # the search ICP needs THIS scan's data maps on device;
+                    # with scans in flight, only check the (host-side)
+                    # trigger and ask the host loop to drain + re-enter
+                    # synchronously: the search repeats next scan at lag 0
+                    if self._closest_index(slam, info.pose) >= 0:
+                        deferred = True
+                else:
+                    found = self._search_candidate(slam, info, vr_new, or_new,
+                                                   res_new)
+                    stats["loop-candidate-found"] = found
         # ---- composed old/new tracking while a candidate is live ---------
-        # The model view for the NEXT scan's ICP is the composed old+new
-        # map whenever a loop candidate is active, so odometry keeps
-        # tracking against the old map through the verification window.
-        if cfg.compose_rendering and qvec is None and lag == 0 \
-                and (self.unverified or self.already_verified):
-            if self._last_comp is not None and np.array_equal(
-                    self.pose_old, self._last_comp_pose):
-                # the verify program already composed old@pose_old with
-                # this scan's model render: reuse, no extra device work
-                slam.set_model_maps(self._last_comp)
-            else:
-                old_maps = self._render_old(slam, self.pose_old)
-                slam.set_model_maps(sm.compose_views(
-                    old_maps, slam.model_maps,
-                    cfg.max_loop_closure_distance))
-
-        _lap("loop/compose")
+        with span(sw, "loop/compose"):
+            # The model view for the NEXT scan's ICP is the composed old+new
+            # map whenever a loop candidate is active, so odometry keeps
+            # tracking against the old map through the verification window.
+            if cfg.compose_rendering and qvec is None and lag == 0 \
+                    and (self.unverified or self.already_verified):
+                if self._last_comp is not None and np.array_equal(
+                        self.pose_old, self._last_comp_pose):
+                    # the verify program already composed old@pose_old with
+                    # this scan's model render: reuse, no extra device work
+                    slam.set_model_maps(self._last_comp)
+                else:
+                    old_maps = self._render_old(slam, self.pose_old)
+                    slam.set_model_maps(sm.compose_views(
+                        old_maps, slam.model_maps,
+                        cfg.max_loop_closure_distance))
         self.sync_request = deferred
         stats["loop-count"] = self.loop_count
         stats["loop-closures"] = self.num_loop_closures
-        stats["loop-time"] = time.perf_counter() - t_loop0
         return stats
 
     def _accept_verification(self, slam, ts: int, pose_old_new, res_old,
@@ -870,7 +868,13 @@ class LoopCloser:
         ``needs_integration``. Returns True if anything was integrated."""
         if self._opt_future is None or not self._opt_future.done():
             return False
-        t0 = time.perf_counter()
+        # the lap is named by the way it integrated: the profiler's range
+        # keeps the name it opened with
+        sw = getattr(slam, "stopwatch", None)
+        with span(sw, "integrate") as done:
+            return self._integrate(slam, done)
+
+    def _integrate(self, slam, done) -> bool:
         snap = self._opt_future.result()
         self._opt_future = None
         self.num_optimizations += 1
@@ -896,10 +900,10 @@ class LoopCloser:
         r_acc = float(np.arccos(np.clip(
             (np.trace(corr_new[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)))
         lcfg = self.cfg.loop
-        sw = getattr(slam, "stopwatch", None)
         if t_acc < lcfg.rebase_gate_translation \
                 and r_acc < lcfg.rebase_gate_rotation:
             # (a) below-gate: host-only integration
+            done.label = "integrate-soft"
             self.num_soft_integrations += 1
             slam.frame_correction = corr_new
             for i in range(min(len(live), len(slam.poses))):
@@ -907,10 +911,9 @@ class LoopCloser:
             self._rewrite_trajectory_distances(slam)
             if self.pose_old is not None:
                 self.pose_old = difference @ self.pose_old
-            if sw is not None:
-                sw.record("integrate-soft", time.perf_counter() - t0)
             return True
         # (b) full device rebase: needs an empty pipeline
+        done.label = "integrate-rebase"
         self.num_rebases += 1
         slam.flush()
         opt = np.stack(self.posegraph.poses())
@@ -922,8 +925,6 @@ class LoopCloser:
         for i in range(min(len(opt), len(slam.poses))):
             slam.poses[i] = opt[i]
         self._rewrite_trajectory_distances(slam)
-        if sw is not None:
-            sw.record("integrate-rebase", time.perf_counter() - t0)
         return True
 
     def _rewrite_trajectory_distances(self, slam) -> None:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import replace
 from typing import NamedTuple
 
@@ -32,7 +33,7 @@ from ..device import AsyncFetch, resolve_device, to_host
 from ..ops import icp as icp_ops
 from ..ops.icp import Maps
 from ..utils import lie
-from ..utils.timing import Stopwatch
+from ..utils.timing import Stopwatch, span
 from . import surfel_map as sm
 from .loop_closure import LoopCloser, OldMapRenderCache
 from .preprocessing import empty_maps, preprocess_scan
@@ -168,62 +169,80 @@ def read_flags(jump: torch.Tensor | None, need: torch.Tensor,
     return bool(vals[0]), bool(vals[1]), lie.rt_to_mat(rot, moved[:3, 3])
 
 
+@contextmanager
+def _stage(stopwatch: Stopwatch | None, timer: StageTimer | None, device,
+           name: str, first: bool = False):
+    """The span ``step/<name>`` of one stage of :func:`odometry_step`; at its
+    exit ``timer`` (when attached) marks the boundary that ends stage
+    ``name`` (and, for the ``first`` stage, at its entry the step's
+    start)."""
+    with span(stopwatch, "step/" + name):
+        if first and timer is not None:
+            timer.mark(device, None)
+        yield
+        if timer is not None:
+            timer.mark(device, name)
+
+
 def odometry_step(state: SlamState, points: torch.Tensor,
                   labels: torch.Tensor, probs: torch.Tensor,
                   point_valid: torch.Tensor, conf_threshold,
-                  cfg: SumaConfig, timer: StageTimer | None = None):
+                  cfg: SumaConfig, timer: StageTimer | None = None,
+                  stopwatch: Stopwatch | None = None):
     """Process one scan. Returns (new_state, StepInfo). The input state is
     consumed: its map arena and pose table are updated in place. The step
     reads the host once, for the branch flags (twice on a scan whose
-    fallback runs)."""
+    fallback runs). With a ``stopwatch`` its stages are the spans
+    ``step/preprocess``, ``step/gauss_newton`` (holding ``step/flags``, each
+    read of the flags) and ``step/fuse_render`` (holding
+    ``surfel_map.fuse_and_render``'s ``fuse/*``)."""
     dev = state.pose.device
     reads0 = to_host.count
     ts = state.timestamp
     semantic = cfg.semantic.enabled
-    if timer is not None:
-        timer.mark(dev, None)
 
-    data_maps = preprocess_scan(points, labels, probs, point_valid,
-                                ts < cfg.semantic.init_scans, cfg)
-    if timer is not None:
-        timer.mark(dev, "preprocess")
+    with _stage(stopwatch, timer, dev, "preprocess", first=True):
+        data_maps = preprocess_scan(points, labels, probs, point_valid,
+                                    ts < cfg.semantic.init_scans, cfg)
 
-    ref_maps = state.model_maps if cfg.approach == "frame-to-model" \
-        else state.last_maps
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    t0 = eye if cfg.icp.initialize_identity else state.last_increment
+    with _stage(stopwatch, timer, dev, "gauss_newton"):
+        ref_maps = state.model_maps if cfg.approach == "frame-to-model" \
+            else state.last_maps
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        t0 = eye if cfg.icp.initialize_identity else state.last_increment
 
-    result = icp_ops.gauss_newton(data_maps, ref_maps, t0, cfg.icp, cfg.model,
-                                  semantic=semantic)
-    iterations = result.iterations
+        result = icp_ops.gauss_newton(data_maps, ref_maps, t0, cfg.icp,
+                                      cfg.model, semantic=semantic)
+        iterations = result.iterations
 
-    # the branch flags, read together: the track-loss fallback (the
-    # increment jumps w.r.t. the motion model: redo the alignment
-    # frame-to-frame with tighter gates) and the view refresh at the pose
-    increment, moved, need = pose_and_refresh(state.pose, result.pose, ts,
-                                              state.map, cfg)
-    jump = jump_flag(state.last_increment, result.pose, ts, cfg.icp) \
-        if cfg.icp.fallback_mode else None
-    jumped, refresh, new_pose = read_flags(jump, need, moved)
-    if jumped:
-        recovery_cfg = replace(cfg.icp,
-                               max_distance=cfg.icp.fallback_max_distance,
-                               max_angle=cfg.icp.fallback_max_angle)
-        rec = icp_ops.gauss_newton(data_maps, state.last_maps, t0,
-                                   recovery_cfg, cfg.data, semantic=semantic)
-        increment, moved, need = pose_and_refresh(state.pose, rec.pose, ts,
-                                                  state.map, cfg)
-        _, refresh, new_pose = read_flags(None, need, moved)
-    if timer is not None:
-        timer.mark(dev, "gauss_newton")
+        # the branch flags, read together: the track-loss fallback (the
+        # increment jumps w.r.t. the motion model: redo the alignment
+        # frame-to-frame with tighter gates) and the view refresh at the
+        # pose
+        increment, moved, need = pose_and_refresh(state.pose, result.pose,
+                                                  ts, state.map, cfg)
+        jump = jump_flag(state.last_increment, result.pose, ts, cfg.icp) \
+            if cfg.icp.fallback_mode else None
+        with span(stopwatch, "step/flags"):
+            jumped, refresh, new_pose = read_flags(jump, need, moved)
+        if jumped:
+            recovery_cfg = replace(cfg.icp,
+                                   max_distance=cfg.icp.fallback_max_distance,
+                                   max_angle=cfg.icp.fallback_max_angle)
+            rec = icp_ops.gauss_newton(data_maps, state.last_maps, t0,
+                                       recovery_cfg, cfg.data,
+                                       semantic=semantic)
+            increment, moved, need = pose_and_refresh(state.pose, rec.pose,
+                                                      ts, state.map, cfg)
+            with span(stopwatch, "step/flags"):
+                _, refresh, new_pose = read_flags(None, need, moved)
 
-    frame = sm.data_surfel_init(data_maps, cfg.data, cfg.map)
-    new_map, model_maps, n_created, n_dropped = sm.fuse_and_render(
-        state.map, frame, new_pose, ts, cfg.data, cfg.map, conf_threshold,
-        (ts + 1) - cfg.loop.delta_timestamp, semantic=semantic,
-        refresh=refresh)
-    if timer is not None:
-        timer.mark(dev, "fuse_render")
+    with _stage(stopwatch, timer, dev, "fuse_render"):
+        frame = sm.data_surfel_init(data_maps, cfg.data, cfg.map)
+        new_map, model_maps, n_created, n_dropped = sm.fuse_and_render(
+            state.map, frame, new_pose, ts, cfg.data, cfg.map, conf_threshold,
+            (ts + 1) - cfg.loop.delta_timestamp, semantic=semantic,
+            refresh=refresh, stopwatch=stopwatch)
 
     new_state = SlamState(map=new_map, pose=new_pose, last_increment=increment,
                           last_maps=data_maps, model_maps=model_maps,
@@ -271,13 +290,19 @@ def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
 
 def odometry_step_fetch(state: SlamState, points, labels, probs, point_valid,
                         conf_threshold, cfg: SumaConfig,
-                        timer: StageTimer | None = None):
+                        timer: StageTimer | None = None,
+                        stopwatch: Stopwatch | None = None):
     """:func:`odometry_step` and the packing of its results: returns
     ``(new_state, packed[50])``, so that the host loop reads one vector a
-    scan."""
-    new_state, info = odometry_step(state, points, labels, probs, point_valid,
-                                    conf_threshold, cfg, timer=timer)
-    return new_state, _pack_step_info(info, new_state.map.block_count)
+    scan. With a ``stopwatch`` both are the span ``step``, the packing its
+    child ``step/pack``."""
+    with span(stopwatch, "step"):
+        new_state, info = odometry_step(state, points, labels, probs,
+                                        point_valid, conf_threshold, cfg,
+                                        timer=timer, stopwatch=stopwatch)
+        with span(stopwatch, "step/pack"):
+            packed = _pack_step_info(info, new_state.map.block_count)
+    return new_state, packed
 
 
 def _stack(values):
@@ -307,7 +332,8 @@ def odometry_run(state: SlamState, points, labels, probs, point_valid,
 
 def odometry_chunk_fetch(state: SlamState, points, labels, probs,
                          point_valid, conf_thresholds, cfg: SumaConfig,
-                         timer: StageTimer | None = None):
+                         timer: StageTimer | None = None,
+                         stopwatch: Stopwatch | None = None):
     """K scans (leading axis) in one dispatch -> ``(state, packed[K, 50])``:
     each scan's packed results (:func:`odometry_step_fetch`) are written into
     one device tensor, which the host loop reads with one fetch. The steps' own
@@ -317,7 +343,7 @@ def odometry_chunk_fetch(state: SlamState, points, labels, probs,
     for i in range(k):
         state, infos[i] = odometry_step_fetch(
             state, points[i], labels[i], probs[i], point_valid[i],
-            conf_thresholds[i], cfg, timer=timer)
+            conf_thresholds[i], cfg, timer=timer, stopwatch=stopwatch)
     return state, infos
 
 
@@ -542,9 +568,8 @@ class HostLoop:
 
     def _drain_one(self) -> dict:
         fetch, t_start, step_syncs, rows = self._pending.popleft()
-        t_f = time.perf_counter()
-        vec = fetch.wait()   # the host loop's one blocking read a dispatch
-        self.stopwatch.record("fetch-wait", time.perf_counter() - t_f)
+        with self.stopwatch.span("fetch-wait"):
+            vec = fetch.wait()  # the host loop's one blocking read a dispatch
         self.syncs += step_syncs + 1
         if rows == 1:
             return self._finish_host(vec, t_start)
@@ -556,17 +581,18 @@ class HostLoop:
         return stats
 
     def _finish_host(self, vec: np.ndarray, t_start: float) -> dict:
+        """The host's part of one scan, the span ``finish``: the k-th
+        ``finish`` of a session belongs to its k-th ``step``."""
+        with self.stopwatch.span("finish"):
+            return self._finish_scan(vec, t_start)
+
+    def _finish_scan(self, vec: np.ndarray, t_start: float) -> dict:
+        sw = self.stopwatch
         info = _unpack_step_info(vec)
         # map device-frame poses to the output frame (identity unless a
         # below-gate integration deferred the device rebase)
         info = info._replace(pose=self.frame_correction @ info.pose)
         lag = self._inflight()  # scans dispatched after this one
-        t0 = [time.perf_counter()]
-
-        def lap(label):
-            t = time.perf_counter()
-            self.stopwatch.record(label, t - t0[0])
-            t0[0] = t
 
         # near-capacity policy: first page far blocks to host RAM, then fall
         # back to stream compaction. A non-zero drop count means the arena
@@ -585,72 +611,74 @@ class HostLoop:
         spilled = False      # this session's map (rank's shard) spilled
         spilled_any = False  # ... on any rank
         if self.spill is not None:
-            self._page_in(pose[:3, 3])
-            lap("host/page-in")
+            with sw.span("host/page-in"):
+                self._page_in(pose[:3, 3])
             # a futile attempt (under pressure, nothing beyond the keep
             # radius) must not repeat every scan: retry only after the arena
             # grew by a chunk
             if pressure and info.block_count >= self._spill_retry_blocks:
-                # the asynchronous probe pays only with scans in flight (its
-                # copy hides behind them); lag 0 scores at once, and active
-                # dropping always reclaims now
-                st = self.spill.maybe_spill(
-                    self._map, pose[:3, 3], headroom_rows=headroom,
-                    async_probe=(self.async_probe and not n_dropped
-                                 and lag > 0),
-                    version=self.map_version)
-                if st is not None:
-                    self._put_map(st)  # maybe_spill compacts
-                    spilled = True
-                spilled_any = self._agreed(spilled)
-                if spilled_any:
-                    self._spill_retry_blocks = 0
-                    lap("host/spill-out")
-                else:
-                    if not self.spill.probe_pending:
+                # the lap is named by what the attempt did: the profiler's
+                # range keeps the name it opened with
+                with sw.span("spill") as attempt:
+                    # the asynchronous probe pays only with scans in flight
+                    # (its copy hides behind them); lag 0 scores at once,
+                    # and active dropping always reclaims now
+                    st = self.spill.maybe_spill(
+                        self._map, pose[:3, 3], headroom_rows=headroom,
+                        async_probe=(self.async_probe and not n_dropped
+                                     and lag > 0),
+                        version=self.map_version)
+                    if st is not None:
+                        self._put_map(st)  # maybe_spill compacts
+                        spilled = True
+                    spilled_any = self._agreed(spilled)
+                    attempt.label = ("host/spill-out" if spilled_any
+                                     else "host/spill-probe")
+                    if spilled_any:
+                        self._spill_retry_blocks = 0
+                    elif not self.spill.probe_pending:
                         # futile verdict (probe or synchronous path): do not
                         # score again until the arena grows a chunk; while
                         # the probe is in flight, leave the threshold unset
                         # so that its verdict is read next scan
                         self._spill_retry_blocks = (info.block_count
                                                     + self.spill.chunk_blocks)
-                    lap("host/spill-probe")
-        compact = bool(n_dropped) or (
-            pressure if self.compact_on_free_rows or self.spill is None
-            else info.map_count + (1 + lag) * rows > cap)
-        if compact and not spilled:
-            self._put_map(sm.compact(self._map, self.map_cfg))
-        if compact or spilled_any:
-            self.map_version += 1
-        lap("host/spill-compact")
-        self.poses.append(pose)
-        if len(self.poses) > 1:
-            self.trajectory_distances.append(
-                self.trajectory_distances[-1]
-                + float(np.linalg.norm(self.poses[-2][:3, 3] - pose[:3, 3])))
-        self.track_loss_count += int(info.track_loss)
+        with sw.span("host/spill-compact"):
+            compact = bool(n_dropped) or (
+                pressure if self.compact_on_free_rows or self.spill is None
+                else info.map_count + (1 + lag) * rows > cap)
+            if compact and not spilled:
+                self._put_map(sm.compact(self._map, self.map_cfg))
+            if compact or spilled_any:
+                self.map_version += 1
+        with sw.span("host/bookkeep"):
+            self.poses.append(pose)
+            if len(self.poses) > 1:
+                self.trajectory_distances.append(
+                    self.trajectory_distances[-1]
+                    + float(np.linalg.norm(self.poses[-2][:3, 3]
+                                           - pose[:3, 3])))
+            self.track_loss_count += int(info.track_loss)
 
-        stats = {
-            "icp-iterations": info.iterations,
-            "icp-error": info.stats.error,
-            "icp-inlier": int(info.stats.inlier),
-            "icp-outlier": int(info.stats.outlier),
-            "icp-valid": int(info.stats.valid),
-            "icp-invalid": int(info.stats.invalid),
-            "track-loss": info.track_loss,
-            "map-count": info.map_count,
-            "surfels-created": info.n_created,
-            "creations-dropped": n_dropped,
-        }
-        lap("host/bookkeep")
+            stats = {
+                "icp-iterations": info.iterations,
+                "icp-error": info.stats.error,
+                "icp-inlier": int(info.stats.inlier),
+                "icp-outlier": int(info.stats.outlier),
+                "icp-valid": int(info.stats.valid),
+                "icp-invalid": int(info.stats.invalid),
+                "track-loss": info.track_loss,
+                "map-count": info.map_count,
+                "surfels-created": info.n_created,
+                "creations-dropped": n_dropped,
+            }
         if self._loop is not None:
-            loop_stats = self._loop.on_scan(self, info, lag=self._inflight())
-            stats.update(loop_stats)
-            if "loop-time" in loop_stats:
-                self.stopwatch.record("loop", loop_stats["loop-time"])
+            # the closer's span ``loop`` (on every scan but the first)
+            stats.update(self._loop.on_scan(self, info, lag=self._inflight()))
 
+        # from the scan's dispatch on, across calls: a lap, not a span
         stats["complete-time"] = time.perf_counter() - t_start
-        self.stopwatch.record("complete", stats["complete-time"])
+        sw.record("complete", stats["complete-time"])
         self.statistics.append(stats)
         if self.stats_callback is not None:
             self.stats_callback(stats)
@@ -702,7 +730,7 @@ class SurfelSLAM(HostLoop):
         reads0 = to_host.count
         self.state, packed = odometry_step_fetch(
             self.state, points, labels, probs, point_valid, conf_threshold,
-            self.cfg, timer=self.timer)
+            self.cfg, timer=self.timer, stopwatch=self.stopwatch)
         return packed, to_host.count - reads0
 
     def _dispatch_chunk(self) -> None:
@@ -720,7 +748,7 @@ class SurfelSLAM(HostLoop):
         reads0 = to_host.count
         self.state, infos = odometry_chunk_fetch(
             self.state, pts, lab, prb, val, [e[4] for e in entries],
-            self.cfg, timer=self.timer)
+            self.cfg, timer=self.timer, stopwatch=self.stopwatch)
         self._pending.append((AsyncFetch(infos), t_start,
                               to_host.count - reads0, len(entries)))
         self.stopwatch.record("dispatch", time.perf_counter() - t_start)

@@ -36,6 +36,7 @@ from ..ops.icp import Maps
 from ..ops.projection import INV_PI, pixel_rays
 from ..ops.zbuffer import zbuffer_argmin, zbuffer_runs
 from ..utils import lie
+from ..utils.timing import Stopwatch, span
 
 _DEG = 180.0 / math.pi
 
@@ -941,7 +942,8 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
                     semantic: bool = True, group=None,
                     create_mask: torch.Tensor | None = None,
                     max_creates: int | None = None,
-                    refresh: bool | None = None):
+                    refresh: bool | None = None,
+                    stopwatch: Stopwatch | None = None):
     """Per-scan map update + post-update model render on the active view,
     with a conditional view refresh. Returns (new_state, model_maps,
     n_created, n_dropped), the counts as device tensors: nothing here reads
@@ -956,7 +958,12 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
     depths with an argmin over the ranks for the global index-map winner
     (the lowest rank on a tie), a sum-OR of the integrated flags, a
     depth-min merge of the render candidates (two gathers) and a sum of the
-    ranks' room for their creations."""
+    ranks' room for their creations.
+
+    With a ``stopwatch`` its parts are the spans ``fuse/refresh`` (the view
+    refresh), ``fuse/update`` (projection, update and selection over one
+    z-buffer pass), ``fuse/create`` (the creations' compaction and append)
+    and ``fuse/render`` (the model render from the shared z-buffer)."""
     dev = pose.device
     pose = pose.to(torch.float32)
     pose_inv = lie.se3_inverse(pose)
@@ -971,147 +978,155 @@ def fuse_and_render(state: MapState, frame: FrameInputs, pose: torch.Tensor,
             f"fresh region ({f_blocks}x{bs} rows) must hold one scan's worst-"
             f"case creations ({mc_eff}); increase MapConfig.active_capacity")
 
-    state = maybe_refresh(state, pose[:3, 3], map_cfg, pending_creates=mc_eff,
-                          need=refresh)
+    with span(stopwatch, "fuse/refresh"):
+        state = maybe_refresh(state, pose[:3, 3], map_cfg,
+                              pending_creates=mc_eff, need=refresh)
 
     # ---- per-surfel update and render selection over one z-buffer pass ----
-    act = state.active
-    proj = _project_surfels(act, pose_inv, data_cfg)
-    frame_img = _pack_frame_image(frame)
-    a = _update_stage_a(act, frame_img, pose, proj, ts, data_cfg, map_cfg,
-                        semantic)
+    with span(stopwatch, "fuse/update"):
+        act = state.active
+        proj = _project_surfels(act, pose_inv, data_cfg)
+        frame_img = _pack_frame_image(frame)
+        a = _update_stage_a(act, frame_img, pose, proj, ts, data_cfg, map_cfg,
+                            semantic)
 
-    idx_sel = act.valid & (proj.cosv > 0.01) & proj.inside
-    rsel = idx_sel
-    if map_cfg.use_stability:
-        unstable_old = (act.confidence < confidence_threshold) & (
-            (ts - act.timestamp) >= map_cfg.unstable_age)
-        alive_nc = (~unstable_old | a.compatible) \
-            & (a.new_conf_nc >= map_cfg.log_unstable)
-        rsel = rsel & alive_nc & (a.new_conf_nc > confidence_threshold)
-    rsel = rsel & ((act.creation_ts >= render_ts_threshold)
-                   | (a.new_ts >= render_ts_threshold))
+        idx_sel = act.valid & (proj.cosv > 0.01) & proj.inside
+        rsel = idx_sel
+        if map_cfg.use_stability:
+            unstable_old = (act.confidence < confidence_threshold) & (
+                (ts - act.timestamp) >= map_cfg.unstable_age)
+            alive_nc = (~unstable_old | a.compatible) \
+                & (a.new_conf_nc >= map_cfg.log_unstable)
+            rsel = rsel & alive_nc & (a.new_conf_nc > confidence_threshold)
+        rsel = rsel & ((act.creation_ts >= render_ts_threshold)
+                       | (a.new_ts >= render_ts_threshold))
 
-    # one z-buffer pass answers the index-map winner, the render winner
-    # (rsel) and "a compatible surfel lands on this pixel" (existence only)
-    ids = torch.where(idx_sel, a.pid, -1)
-    winner_all, (winner_render, winner_compat), (wdepth_render, _) = \
-        zbuffer_runs(ids, proj.depth, (rsel, a.compatible), hw,
-                     depth_bound=max(100.0, data_cfg.max_depth),
-                     flag_payloads=(True, False))
-    integrated = winner_compat >= 0
+        # one z-buffer pass answers the index-map winner, the render winner
+        # (rsel) and "a compatible surfel lands on this pixel" (existence only)
+        ids = torch.where(idx_sel, a.pid, -1)
+        winner_all, (winner_render, winner_compat), (wdepth_render, _) = \
+            zbuffer_runs(ids, proj.depth, (rsel, a.compatible), hw,
+                         depth_bound=max(100.0, data_cfg.max_depth),
+                         flag_payloads=(True, False))
+        integrated = winner_compat >= 0
 
-    pid_safe = torch.clamp_max(a.pid, hw - 1)
-    closest = winner_all[pid_safe] == torch.arange(act.capacity, device=dev)
-    if group is not None:
-        # the local winner counts only where this rank also wins the
-        # depth argmin over the ranks
-        wd = torch.where(winner_all >= 0,
-                         proj.depth[winner_all.clamp_min(0)], torch.inf)
-        i_win = (torch.argmin(group.gather(wd), dim=0) == group.rank) \
-            & (winner_all >= 0)
-        closest = closest & i_win[pid_safe]
-        integrated = group.sum(integrated.to(torch.int32)) > 0
-    upd = _update_finish(act, a, closest, ts, map_cfg, confidence_threshold)
+        pid_safe = torch.clamp_max(a.pid, hw - 1)
+        closest = winner_all[pid_safe] == torch.arange(act.capacity,
+                                                       device=dev)
+        if group is not None:
+            # the local winner counts only where this rank also wins the
+            # depth argmin over the ranks
+            wd = torch.where(winner_all >= 0,
+                             proj.depth[winner_all.clamp_min(0)], torch.inf)
+            i_win = (torch.argmin(group.gather(wd), dim=0) == group.rank) \
+                & (winner_all >= 0)
+            closest = closest & i_win[pid_safe]
+            integrated = group.sum(integrated.to(torch.int32)) > 0
+        upd = _update_finish(act, a, closest, ts, map_cfg,
+                             confidence_threshold)
 
-    new_data, create = _make_new_surfels(frame, pose, ts, integrated,
-                                         map_cfg, semantic)
-    create_all = create
-    if create_mask is not None:
-        # the rows of other ranks' pixels must not stay valid in the
-        # appended chunks
-        create = create & create_mask
-        new_data.i[:, _VALID] = create.to(torch.int32)
+    with span(stopwatch, "fuse/create"):
+        new_data, create = _make_new_surfels(frame, pose, ts, integrated,
+                                             map_cfg, semantic)
+        create_all = create
+        if create_mask is not None:
+            # the rows of other ranks' pixels must not stay valid in the
+            # appended chunks
+            create = create & create_mask
+            new_data.i[:, _VALID] = create.to(torch.int32)
 
-    # ---- creations: compact to the front (pixel order kept), append ----
-    # The block of mc_eff rows is appended at the cursor in chunks of ch
-    # rows: chunk c lands iff the whole append fits the view and the arena
-    # and it holds creations (JAX's rule). Written in fixed size: the rows of
-    # the chunks that do not land are written with their own values, at
-    # their positions modulo the view, which no landing row takes (mc_eff
-    # <= the fresh region <= the view).
-    n_chunks = 4 if mc_eff % 4 == 0 else 1
-    ch = mc_eff // n_chunks
-    n_new = torch.sum(create)
-    perm = torch.sort((~create).to(torch.int32), stable=True).indices
-    take = perm[:mc_eff]
-    blk_f, blk_i = new_data.f[take], new_data.i[take]
+        # ---- creations: compact to the front (pixel order kept), append ----
+        # The block of mc_eff rows is appended at the cursor in chunks of
+        # ch rows: chunk c lands iff the whole append fits the view and the
+        # arena and it holds creations (JAX's rule). Written in fixed size:
+        # the rows of the chunks that do not land are written with their
+        # own values, at their positions modulo the view, which no landing
+        # row takes (mc_eff <= the fresh region <= the view).
+        n_chunks = 4 if mc_eff % 4 == 0 else 1
+        ch = mc_eff // n_chunks
+        n_new = torch.sum(create)
+        perm = torch.sort((~create).to(torch.int32), stable=True).indices
+        take = perm[:mc_eff]
+        blk_f, blk_i = new_data.f[take], new_data.i[take]
 
-    active_count = state.active_count.to(torch.int64)
-    chunks_needed = (n_new + ch - 1) // ch
-    end_row = active_count + chunks_needed * ch
-    last_slot = torch.clamp((end_row - 1) // bs, 0, k - 1).reshape(1)
-    arena_ok = (state.active_blocks[last_slot] < nb).reshape(())
-    a_fit = (end_row <= view_rows) & arena_ok
-    n_created = torch.where(a_fit, n_new, 0)
-    n_dropped = n_new - n_created
+        active_count = state.active_count.to(torch.int64)
+        chunks_needed = (n_new + ch - 1) // ch
+        end_row = active_count + chunks_needed * ch
+        last_slot = torch.clamp((end_row - 1) // bs, 0, k - 1).reshape(1)
+        arena_ok = (state.active_blocks[last_slot] < nb).reshape(())
+        a_fit = (end_row <= view_rows) & arena_ok
+        n_created = torch.where(a_fit, n_new, 0)
+        n_dropped = n_new - n_created
 
-    av, ai = upd.f, upd.i  # fresh tensors from _update_finish: write in place
-    offs = torch.arange(mc_eff, device=dev)
-    lands = (a_fit & (offs < chunks_needed * ch))[:, None]
-    pos = (active_count + offs) % view_rows
-    av[pos] = torch.where(lands, blk_f, av[pos])
-    ai[pos] = torch.where(lands, blk_i, ai[pos])
-    active2 = PackedSurfels(f=av, i=ai)
+        # fresh tensors from _update_finish: write in place
+        av, ai = upd.f, upd.i
+        offs = torch.arange(mc_eff, device=dev)
+        lands = (a_fit & (offs < chunks_needed * ch))[:, None]
+        pos = (active_count + offs) % view_rows
+        av[pos] = torch.where(lands, blk_f, av[pos])
+        ai[pos] = torch.where(lands, blk_i, ai[pos])
+        active2 = PackedSurfels(f=av, i=ai)
 
-    poses = state.poses  # updated in place
-    slot = torch.clamp(ts.to(torch.int64), 0, poses.shape[0] - 1)
-    poses.index_copy_(0, slot.reshape(1), pose[None])
+        poses = state.poses  # updated in place
+        slot = torch.clamp(ts.to(torch.int64), 0, poses.shape[0] - 1)
+        poses.index_copy_(0, slot.reshape(1), pose[None])
 
-    state2 = state._replace(
-        count=(state.count + n_created).to(torch.int32), poses=poses,
-        active=active2,
-        active_count=(active_count + n_created).to(torch.int32))
+        state2 = state._replace(
+            count=(state.count + n_created).to(torch.int32), poses=poses,
+            active=active2,
+            active_count=(active_count + n_created).to(torch.int32))
 
     # ---- model render from the shared z-buffer ----
-    has = winner_render >= 0
-    g = upd.f[winner_render.clamp_min(0)]
-    gl = upd.i[winner_render.clamp_min(0), _LABEL]
-    r_inv, t_inv = pose_inv[:3, :3], pose_inv[:3, 3]
-    p_c = g[:, _WPOS] @ r_inv.T + t_inv
-    n_c = g[:, _WNRM] @ r_inv.T
-    img = torch.cat([p_c, n_c, g[:, _RADIUS:_RADIUS + 1],
-                     gl[:, None].to(torch.float32),
-                     g[:, _SEMPROB:_SEMPROB + 1]], dim=-1)
-    img = torch.where(has[:, None], img, 0.0)
+    with span(stopwatch, "fuse/render"):
+        has = winner_render >= 0
+        g = upd.f[winner_render.clamp_min(0)]
+        gl = upd.i[winner_render.clamp_min(0), _LABEL]
+        r_inv, t_inv = pose_inv[:3, :3], pose_inv[:3, 3]
+        p_c = g[:, _WPOS] @ r_inv.T + t_inv
+        n_c = g[:, _WNRM] @ r_inv.T
+        img = torch.cat([p_c, n_c, g[:, _RADIUS:_RADIUS + 1],
+                         gl[:, None].to(torch.float32),
+                         g[:, _SEMPROB:_SEMPROB + 1]], dim=-1)
+        img = torch.where(has[:, None], img, 0.0)
 
-    if group is not None:
-        # depth-min merge of the ranks' render candidates
-        d_all = group.gather(wdepth_render)                     # [D, HW]
-        img_all = group.gather(img)                             # [D, HW, 9]
-        win = torch.argmin(d_all, dim=0)
-        img = torch.take_along_dim(img_all, win[None, :, None], dim=0)[0]
-        wdepth_render = torch.amin(d_all, dim=0)
-        has = torch.isfinite(wdepth_render)
+        if group is not None:
+            # depth-min merge of the ranks' render candidates
+            d_all = group.gather(wdepth_render)                 # [D, HW]
+            img_all = group.gather(img)                         # [D, HW, 9]
+            win = torch.argmin(d_all, dim=0)
+            img = torch.take_along_dim(img_all, win[None, :, None], dim=0)[0]
+            wdepth_render = torch.amin(d_all, dim=0)
+            has = torch.isfinite(wdepth_render)
 
-    # merge this scan's creations (they splat exactly at their pixel)
-    maps = frame.maps
-    vflat = maps.vertex.reshape(-1, 3)
-    nflat = maps.normal.reshape(-1, 3)
-    d_new = torch.linalg.norm(vflat, dim=-1)
-    cos_new = torch.sum(nflat * (-vflat), dim=-1) \
-        / torch.clamp_min(d_new, 1e-12)
-    conf_new = torch.where(is_movable(maps.sem_label.reshape(-1)) & semantic,
-                           map_cfg.log_prior - 0.5, map_cfg.log_prior)
-    if group is not None and create_mask is not None:
-        # a created pixel renders iff its owner rank had room for it
-        owner_fit = group.sum((create_mask & a_fit).to(torch.int32)) > 0
-        new_rsel = create_all & owner_fit & (cos_new > 0.01)
-    else:
-        new_rsel = create & a_fit & (cos_new > 0.01)
-    if map_cfg.use_stability:
-        new_rsel = new_rsel & (conf_new > confidence_threshold)
-    take_new = new_rsel & (~has | (d_new < wdepth_render))
-    new_img = torch.cat([
-        vflat, nflat, frame.radius.reshape(-1, 1),
-        maps.sem_label.reshape(-1, 1).to(torch.float32),
-        maps.sem_prob.reshape(-1, 1)], dim=-1)
-    img = torch.where(take_new[:, None], new_img, img)
-    has = has | take_new
+        # merge this scan's creations (they splat exactly at their pixel)
+        maps = frame.maps
+        vflat = maps.vertex.reshape(-1, 3)
+        nflat = maps.normal.reshape(-1, 3)
+        d_new = torch.linalg.norm(vflat, dim=-1)
+        cos_new = torch.sum(nflat * (-vflat), dim=-1) \
+            / torch.clamp_min(d_new, 1e-12)
+        conf_new = torch.where(
+            is_movable(maps.sem_label.reshape(-1)) & semantic,
+            map_cfg.log_prior - 0.5, map_cfg.log_prior)
+        if group is not None and create_mask is not None:
+            # a created pixel renders iff its owner rank had room for it
+            owner_fit = group.sum((create_mask & a_fit).to(torch.int32)) > 0
+            new_rsel = create_all & owner_fit & (cos_new > 0.01)
+        else:
+            new_rsel = create & a_fit & (cos_new > 0.01)
+        if map_cfg.use_stability:
+            new_rsel = new_rsel & (conf_new > confidence_threshold)
+        take_new = new_rsel & (~has | (d_new < wdepth_render))
+        new_img = torch.cat([
+            vflat, nflat, frame.radius.reshape(-1, 1),
+            maps.sem_label.reshape(-1, 1).to(torch.float32),
+            maps.sem_prob.reshape(-1, 1)], dim=-1)
+        img = torch.where(take_new[:, None], new_img, img)
+        has = has | take_new
 
-    h, w = data_cfg.height, data_cfg.width
-    model_maps = _disk_resolve(img.reshape(h, w, 9), has.reshape(h, w),
-                               data_cfg, map_cfg.splat_resolve_radius)
+        h, w = data_cfg.height, data_cfg.width
+        model_maps = _disk_resolve(img.reshape(h, w, 9), has.reshape(h, w),
+                                   data_cfg, map_cfg.splat_resolve_radius)
     return state2, model_maps, n_created, n_dropped
 
 

@@ -37,6 +37,7 @@ from ..device import resolve_device, to_host
 from ..ops.knn import labels_for_points
 from ..ops.projection import project_scan
 from ..parallel.distributed import Group
+from ..utils.timing import Stopwatch
 from .labels import raw_to_train
 from .rangenet import Conv, ConvTranspose, RangeNet, make_input, small_rangenet
 
@@ -205,6 +206,8 @@ class Segmenter:
         self.model = self.model.to(self.device).eval().requires_grad_(False)
         self.net = _inference_copy(self.model, self.device)
         self.use_knn = use_knn
+        # the host-clock laps of the calls
+        self.stopwatch = Stopwatch()
 
     @torch.no_grad()
     def logits(self, images: torch.Tensor) -> torch.Tensor:
@@ -213,21 +216,30 @@ class Segmenter:
 
     @torch.no_grad()
     def __call__(self, points, remissions=None):
-        pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
-        if remissions is None:
-            rem = torch.zeros(pts.shape[:1], dtype=torch.float32,
-                              device=self.device)
-        else:
-            rem = torch.as_tensor(remissions, dtype=torch.float32,
+        """Raw labels and probabilities of ``points``; on ``stopwatch`` the
+        spans ``segmenter/project`` (the projection and the network's
+        input), ``segmenter/network`` and ``segmenter/vote`` (kernel C's
+        vote)."""
+        sw = self.stopwatch
+        with sw.span("segmenter/project"):
+            pts = torch.as_tensor(points, dtype=torch.float32,
                                   device=self.device)
-        res = project_scan(pts, remissions=rem, cfg=self.cfg)
-        net_in = make_input(res.vertex_map, res.depth_map, res.remission,
-                            res.vertex_valid)[None]
-        logits = self.net(net_in)[0]
-        depth = torch.linalg.vector_norm(pts, dim=-1)
-        return labels_for_points(
-            logits, res.point_px.clamp_min(0), res.point_py.clamp_min(0),
-            depth, res.point_px >= 0, res.depth_map, use_knn=self.use_knn)
+            if remissions is None:
+                rem = torch.zeros(pts.shape[:1], dtype=torch.float32,
+                                  device=self.device)
+            else:
+                rem = torch.as_tensor(remissions, dtype=torch.float32,
+                                      device=self.device)
+            res = project_scan(pts, remissions=rem, cfg=self.cfg)
+            net_in = make_input(res.vertex_map, res.depth_map, res.remission,
+                                res.vertex_valid)[None]
+        with sw.span("segmenter/network"):
+            logits = self.net(net_in)[0]
+        with sw.span("segmenter/vote"):
+            depth = torch.linalg.vector_norm(pts, dim=-1)
+            return labels_for_points(
+                logits, res.point_px.clamp_min(0), res.point_py.clamp_min(0),
+                depth, res.point_px >= 0, res.depth_map, use_knn=self.use_knn)
 
     def save(self, path: str, half: bool = True) -> None:
         """Pickle the weights in the JAX package's blob format (nested numpy

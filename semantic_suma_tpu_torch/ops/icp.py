@@ -249,23 +249,17 @@ def jacobian_products(pose: torch.Tensor, data: Maps, model: Maps,
     return ata[:6, :6], ata[:6, 6], stats
 
 
-# calls of gauss_newton and the iterations they ran, since the process
-# began: the host loop and the CPU count on the host; a card's latched loops
-# add to a device counter of that card (int64, by device name), which a
-# report reads where it needs it
+# calls of gauss_newton and, where they are counted on the host (the CPU,
+# the sharded and the host loops), the iterations they ran, since the
+# process began; a card's latched loop leaves its count on the card, in its
+# result's ``iterations``
 gn_counts = {"calls": 0, "iterations": 0}
-gn_device_iterations: dict = {}
 
 
 def _count_call(k) -> None:
     gn_counts["calls"] += 1
     if not isinstance(k, torch.Tensor) or k.device.type == "cpu":
         gn_counts["iterations"] += int(k)
-        return
-    key = str(k.device)
-    prev = gn_device_iterations.get(key)
-    k64 = k.to(torch.int64)
-    gn_device_iterations[key] = k64 if prev is None else prev + k64
 
 
 def _solve_spd(jtj: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,13 @@
 """Named experiment/event logs as JSONL (counterpart of
 ``semantic_suma_tpu/utils/eventlog.py``): open a named log, append typed
 events, each flushed to disk as one JSON line. The CLI writes its per-scan
-statistics through it."""
+statistics through one :class:`EventLog` of its own."""
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Optional
 
 
 class EventLog:
@@ -30,12 +30,3 @@ class EventLog:
             self._fh.close()
             self._fh = None
 
-
-_logs: Dict[str, EventLog] = {}
-
-
-def get_log(name: str, path: Optional[str] = None) -> EventLog:
-    """The process-wide log of this name, opened on first use."""
-    if name not in _logs:
-        _logs[name] = EventLog(name, path)
-    return _logs[name]

@@ -1,19 +1,20 @@
 """Hierarchical tic/toc profiler on the host clock (counterpart of
 ``semantic_suma_tpu/utils/timing.py``): a tic/toc stack plus named labels
-with running count, total, max and last. The host loop and the loop closer
-record their host-visible phases here; device time per stage is
-``core.pipeline.StageTimer``'s (CUDA events).
+with running count, total, max and last. The host loop, the odometry step,
+the loop closer and the segmenter record their host-visible phases here as
+spans (:meth:`Stopwatch.span`), which also land in a ``torch.profiler``
+trace, beside the device's operations, while a profiler records; device time
+per stage is ``core.pipeline.StageTimer``'s (CUDA events).
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-import torch
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -29,7 +30,7 @@ class StageStats:
 
 
 class Stopwatch:
-    """tic()/toc() stack + named scopes with aggregated statistics."""
+    """tic()/toc() stack + named spans with aggregated statistics."""
 
     def __init__(self):
         self._stack: List[float] = []
@@ -43,7 +44,8 @@ class Stopwatch:
         s = self.stats[label]
         s.count += 1
         s.total += elapsed
-        s.max = max(s.max, elapsed)
+        if elapsed > s.max:
+            s.max = elapsed
         s.last = elapsed
 
     def toc(self, label: Optional[str] = None) -> float:
@@ -52,17 +54,13 @@ class Stopwatch:
             self.record(label, elapsed)
         return elapsed
 
-    @contextmanager
-    def scope(self, label: str, sync: Optional[torch.device] = None):
-        """Timed scope; pass a CUDA device as ``sync`` to wait for its queued
-        work before stopping the clock (attributing it to this scope)."""
-        self.tic()
-        try:
-            yield
-        finally:
-            if sync is not None and torch.device(sync).type == "cuda":
-                torch.cuda.synchronize(sync)
-            self.toc(label)
+    def span(self, label: str) -> "_Span":
+        """Timed scope whose lap is recorded under ``label`` (the body may
+        set ``.label`` on the object it gets, to name the lap by what
+        happened). While a ``torch.profiler`` records, the scope is also a
+        ``record_function(label)`` around the body, opened under the label
+        it started with; otherwise nothing but the two clock reads."""
+        return _Span(self, label)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         return {k: {"mean_ms": v.mean * 1e3, "max_ms": v.max * 1e3,
@@ -79,3 +77,54 @@ class Stopwatch:
     def reset(self) -> None:
         self.stats.clear()
         self._stack.clear()
+
+
+class _Span:
+    """:meth:`Stopwatch.span`'s context: the host-clock lap, and inside it
+    the profiler's range when one records."""
+
+    __slots__ = ("_sw", "label", "_t0", "_range")
+
+    def __init__(self, sw: Stopwatch, label: str):
+        self._sw = sw
+        self.label = label
+
+    def __enter__(self) -> "_Span":
+        # the lap holds the range, its opening and closing included: a
+        # span's lap then lies inside the range of the span around it
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.label)
+            self._t0 = time.perf_counter()
+            self._range.__enter__()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._sw.record(self.label, time.perf_counter() - self._t0)
+        return False
+
+
+class _NoSpan:
+    """The scope of no stopwatch: it times nothing, and takes a ``label``
+    that nothing reads."""
+
+    __slots__ = ("label",)
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(stopwatch: Optional[Stopwatch], label: str):
+    """``stopwatch.span(label)``, or a scope that does nothing where there
+    is no stopwatch (``None``)."""
+    return _NO_SPAN if stopwatch is None else stopwatch.span(label)

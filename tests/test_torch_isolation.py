@@ -390,7 +390,12 @@ RENAMED = {
         "core/surfel_map:refresh_active",
     "parallel/sharding:make_sharded_view_render":
         "parallel/sharding:sharded_view_render",
+    "utils/eventlog:get_log":
+        "none: no reader; the CLI holds its EventLog itself",
     "utils/timing:Stopwatch._record": "utils/timing:Stopwatch.record",
+    # a span is the scope, and a profiler's range around it while one
+    # records
+    "utils/timing:Stopwatch.scope": "utils/timing:Stopwatch.span",
     "utils/viz:_plt": "none: the card's hosts have no matplotlib; the port "
                       "draws its PNGs with numpy",
 }
