@@ -245,6 +245,7 @@ loop path, whose arena holds no more.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -1649,6 +1650,136 @@ def phase_chunked(dev):
         raise AssertionError(f"chunked: kernels ran {launches} over {n} "
                              "scans")
     return launches
+
+
+STEP_GRAPH_CELL = "suma-norevisit-offline"
+STEP_GRAPH_PROFILED = (10, 20)   # the scans of each run in the profiler
+
+
+def _cell_sequence(dev, cell: str, seed: int):
+    """A benchmark cell's configuration, traffic and one of its sequences
+    (the benchmark's own generator, rendered onto the card)."""
+    from suma_bench import generator, harness
+    from suma_bench.run import port_config
+    spec = harness.cell(cell)
+    cfgj, traffic = spec["config"], spec["traffic"]
+    scans, _ = generator.render_sequence(traffic, cfgj["suma"]["data"],
+                                         cfgj["sensor"], seed, dev)
+    return port_config(cfgj["suma"]), traffic, scans
+
+
+def _launch_rows(prof, n: int) -> tuple:
+    """``(device operations, launch calls)`` a scan in a profile of ``n``
+    scans: the card's kernels, copies and fills, and the host's calls that
+    put work on it (a graph's launch is one call)."""
+    from torch.autograd import DeviceType
+    ops = calls = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ops += e.count
+        elif e.key.startswith("cu") and any(
+                k in e.key for k in ("Launch", "Memcpy", "Memset")):
+            calls += e.count
+    return ops / n, calls / n
+
+
+def phase_step_graph(dev):
+    """``[step-graph]``: one sequence of the benchmark cell
+    ``suma-norevisit-offline`` (45 scans through ``process_scan_async`` at
+    the cell's depth, then ``flush`` and ``finalize``) through three fresh
+    sessions: without step graphs (the session's taken away), then twice
+    with them, the second as the benchmark's window sessions run: it takes
+    the graphs the first handed on, and captures nothing. Held:
+    trajectories, every scan's packed row, creations and drops equal bit
+    for bit; the second graph session replays every stage call, and every
+    kernel of the step is launched from the graphs (kernel F among the
+    profiled operations). Printed: each run's host seconds, device
+    operations and launch calls a scan over the profiled scans, peak memory,
+    and each graph session's captures, replays and eager calls by stage,
+    eager calls by reason and capture ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
+    from semantic_suma_tpu_torch.core.step_graph import STAGES
+
+    cfg, traffic, scans = _cell_sequence(dev, STEP_GRAPH_CELL, 7)
+    depth = int(traffic["pipeline_depth"])
+    a, b = STEP_GRAPH_PROFILED
+    runs = {}
+    for name in ("eager", "graphs", "graphs again"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        slam = SurfelSLAM(cfg, pipeline_depth=depth, device=dev)
+        graphs = slam._graphs
+        if name == "eager":
+            slam._graphs = None
+        rows = []
+        step = slam._step
+
+        def keep(*args, step=step, rows=rows):
+            packed, reads = step(*args)
+            rows.append(packed.clone())
+            return packed, reads
+        slam._step = keep
+        t0 = time.perf_counter()
+        for i, s in enumerate(scans):
+            if i == a:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            slam.process_scan_async(s.points, s.labels, s.probs, s.valid)
+            if i + 1 == b:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+        slam.flush()
+        slam.finalize()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ops, calls = _launch_rows(prof, b - a)
+        kernel_f = sum(e.count for e in prof.key_averages()
+                       if "gn_loop_kernel" in e.key) / (b - a)
+        runs[name] = dict(traj=slam.trajectory(), rows=rows,
+                          stats=[(st["surfels-created"],
+                                  st["creations-dropped"])
+                                 for st in slam.statistics],
+                          summary=None if name == "eager"
+                          else graphs.summary())
+        print(f"[step-graph] {name}: {len(scans)} scans in {dt:.3f} s "
+              f"(host clock, scans {a}-{b - 1} profiled); device operations "
+              f"{ops:.1f} and launch calls {calls:.1f} a profiled scan, "
+              f"kernel F {kernel_f:.1f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; map "
+              f"surfels {slam.statistics[-1]['map-count']}, dropped "
+              f"{slam.creations_dropped}, track losses "
+              f"{slam.track_loss_count}")
+        if name != "eager":
+            print(f"[step-graph] {name}: {json.dumps(graphs.summary())}")
+        if name == "graphs again" and not kernel_f >= 1:
+            raise AssertionError("step-graph: kernel F not among the "
+                                 "profiled graph operations")
+        # the session hands its graphs on when it is collected (``keep``
+        # holds it in a cycle)
+        del slam, graphs, step, keep
+        gc.collect()
+    want = runs["eager"]
+    for name in ("graphs", "graphs again"):
+        got = runs[name]
+        same = (np.array_equal(got["traj"], want["traj"])
+                and got["stats"] == want["stats"]
+                and len(got["rows"]) == len(want["rows"])
+                and all(torch.equal(x, y)
+                        for x, y in zip(got["rows"], want["rows"])))
+        print(f"[step-graph] {name} against eager: trajectories, packed "
+              f"rows, creations and drops "
+              f"{'equal bit for bit' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"step-graph: {name} differs from eager")
+    again = runs["graphs again"]["summary"]
+    if any(again["eager"][st] or again["captures"][st] for st in STAGES):
+        raise AssertionError(f"step-graph: the session that took the "
+                             f"graphs over did not replay every call: "
+                             f"{again}")
 
 
 def phase_default_path(dev):
@@ -4036,6 +4167,7 @@ def main() -> int:
     timed("parity", phase_parity, dev)
     paths = {"main": timed("main", phase_main_path, dev, args.profile_scans)}
     paths["chunked"] = timed("chunked", phase_chunked, dev)
+    timed("step-graph", phase_step_graph, dev)
     timed("default", phase_default_path, dev)
     timed("posegraph", phase_posegraph, dev)
     paths["loop"], real = timed("loop", phase_loop, dev, floors,

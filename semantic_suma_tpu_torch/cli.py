@@ -309,6 +309,14 @@ def _drive(args, device, mesh=None):
         print(f"loop closures {lc.num_loop_closures}, optimizations "
               f"{lc.num_optimizations}, rebases {lc.num_rebases}",
               file=sys.stderr)
+    graphs = getattr(slam, "_graphs", None)
+    if graphs is not None:
+        # the step's stages: captured, replayed and eager calls, and why
+        # the eager ones did not replay
+        print(f"step graphs: {json.dumps(graphs.summary())}",
+              file=sys.stderr)
+        if evlog is not None:
+            evlog.log("step-graphs", **graphs.summary())
     sw = getattr(slam, "stopwatch", None)
     if args.verbose and sw is not None:
         print(sw.report(), file=sys.stderr)

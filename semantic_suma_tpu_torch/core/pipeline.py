@@ -14,7 +14,9 @@ creation append and the counts stay on the device (``core/surfel_map``).
 machine and the host-RAM spill of the map arena (``core/spill``). With
 ``chunk_size=K`` and loop closure off, ``process_scan_async`` runs K scans
 per dispatch (``odometry_chunk_fetch``) and reads their K packed result
-rows with one fetch.
+rows with one fetch. On a card the step's stages are replayed as CUDA
+graphs (``core/step_graph``), the same stage functions as the eager step
+calls here, between the same host read.
 """
 
 from __future__ import annotations
@@ -104,10 +106,14 @@ class StageTimer:
         return {s: total[s] / count[s] for s in self.STAGES if count[s]}
 
 
-def init_state(cfg: SumaConfig, device=None) -> SlamState:
+def init_state(cfg: SumaConfig, device=None,
+               reuse: SlamState | None = None) -> SlamState:
+    """A session's first state; ``reuse``: a finished session's state of the
+    same configuration, whose arena and active view it takes, zeroed
+    (``surfel_map.empty_map``)."""
     dev = resolve_device(device)
     return SlamState(
-        map=sm.empty_map(cfg.map, dev),
+        map=sm.empty_map(cfg.map, dev, None if reuse is None else reuse.map),
         pose=torch.eye(4, dtype=torch.float32, device=dev),
         last_increment=torch.eye(4, dtype=torch.float32, device=dev),
         last_maps=empty_maps(cfg, dev),
@@ -147,26 +153,41 @@ def pose_and_refresh(pose: torch.Tensor, increment: torch.Tensor, ts,
     return increment, moved, need
 
 
-def read_flags(jump: torch.Tensor | None, need: torch.Tensor,
-               moved: torch.Tensor):
-    """The step's one read: ``(jumped, refresh, new pose)``. The jump flag
-    (None when the fallback is off), the refresh flag and the rotation of
-    ``moved`` come to the host together; the rotation is projected onto
-    SO(3) there by ``lie.orthonormalize`` (LAPACK's SVD, the JAX package's
-    CPU answer: a CUDA SVD reads its convergence flags to the host, which
-    would wait for the device once more), and goes back to the device by a
-    non-blocking copy from pinned memory."""
+def flag_vector(jump: torch.Tensor | None, need: torch.Tensor,
+                moved: torch.Tensor) -> torch.Tensor:
+    """What :func:`read_flags` reads, on the device: ``[jump, need,
+    moved's rotation (9)]`` in ``moved``'s type (the jump 0 when the
+    fallback is off)."""
     dev = moved.device
     flags = torch.stack([torch.zeros((), dtype=torch.bool, device=dev)
                          if jump is None else jump, need])
-    vals = to_host(torch.cat([flags.to(moved.dtype),
-                              moved[:3, :3].reshape(-1)]))
+    return torch.cat([flags.to(moved.dtype), moved[:3, :3].reshape(-1)])
+
+
+def read_flag_vector(vec: torch.Tensor, moved: torch.Tensor):
+    """The read of a :func:`flag_vector`: ``(jumped, refresh, new pose)``,
+    the pose's rotation projected onto SO(3) on the host (see
+    :func:`read_flags`) and its translation ``moved``'s."""
+    dev = moved.device
+    vals = to_host(vec)
     rot = lie.orthonormalize(lie.rt_to_mat(
         torch.tensor(vals[2:], dtype=moved.dtype).reshape(3, 3),
         torch.zeros(3, dtype=moved.dtype)))[:3, :3]
     if dev.type == "cuda":
         rot = rot.pin_memory().to(dev, non_blocking=True)
     return bool(vals[0]), bool(vals[1]), lie.rt_to_mat(rot, moved[:3, 3])
+
+
+def read_flags(jump: torch.Tensor | None, need: torch.Tensor,
+               moved: torch.Tensor):
+    """The step's one read: ``(jumped, refresh, new pose)``. The jump flag
+    (None when the fallback is off), the refresh flag and the rotation of
+    ``moved`` come to the host together (:func:`flag_vector`); the rotation
+    is projected onto SO(3) there by ``lie.orthonormalize`` (LAPACK's SVD,
+    the JAX package's CPU answer: a CUDA SVD reads its convergence flags to
+    the host, which would wait for the device once more), and goes back to
+    the device by a non-blocking copy from pinned memory."""
+    return read_flag_vector(flag_vector(jump, need, moved), moved)
 
 
 @contextmanager
@@ -184,73 +205,142 @@ def _stage(stopwatch: Stopwatch | None, timer: StageTimer | None, device,
             timer.mark(device, name)
 
 
+class Aligned(NamedTuple):
+    """What the Gauss-Newton stage leaves for the host's read and the stages
+    after it: the loop's result, the increment and the moved pose of
+    :func:`pose_and_refresh`, and the :func:`flag_vector` the host reads."""
+
+    result: icp_ops.IcpResult
+    increment: torch.Tensor
+    moved: torch.Tensor
+    flags: torch.Tensor
+
+
+def _t0(state: SlamState, cfg: SumaConfig) -> torch.Tensor:
+    """Gauss-Newton's start: the identity or the motion model."""
+    if cfg.icp.initialize_identity:
+        return torch.eye(4, dtype=torch.float32, device=state.pose.device)
+    return state.last_increment
+
+
+def preprocess_stage(state: SlamState, points, labels, probs, point_valid,
+                     cfg: SumaConfig) -> Maps:
+    """The step's stage ``preprocess``: the scan's data maps."""
+    return preprocess_scan(points, labels, probs, point_valid,
+                           state.timestamp < cfg.semantic.init_scans, cfg)
+
+
+def align_stage(state: SlamState, data_maps: Maps,
+                cfg: SumaConfig) -> Aligned:
+    """The stage ``gauss_newton`` up to the host's read: the alignment
+    against the model (or the last frame), the increment, the moved pose,
+    and the branch flags packed for the read: the track-loss fallback (the
+    increment jumps w.r.t. the motion model: redo the alignment
+    frame-to-frame with tighter gates) and the view refresh at the pose."""
+    ts = state.timestamp
+    ref_maps = state.model_maps if cfg.approach == "frame-to-model" \
+        else state.last_maps
+    result = icp_ops.gauss_newton(data_maps, ref_maps, _t0(state, cfg),
+                                  cfg.icp, cfg.model,
+                                  semantic=cfg.semantic.enabled)
+    increment, moved, need = pose_and_refresh(state.pose, result.pose, ts,
+                                              state.map, cfg)
+    jump = jump_flag(state.last_increment, result.pose, ts, cfg.icp) \
+        if cfg.icp.fallback_mode else None
+    return Aligned(result, increment, moved, flag_vector(jump, need, moved))
+
+
+def fuse_stage(state: SlamState, data_maps: Maps, new_pose: torch.Tensor,
+               increment: torch.Tensor, refresh: bool, conf_threshold,
+               cfg: SumaConfig, stopwatch: Stopwatch | None = None):
+    """The stage ``fuse_render``: the scan's surfels fused at ``new_pose``
+    and the model rendered there (``conf_threshold`` a number or a float32
+    on the device). Returns ``(new_state, n_created, n_dropped)``."""
+    ts = state.timestamp
+    frame = sm.data_surfel_init(data_maps, cfg.data, cfg.map)
+    new_map, model_maps, n_created, n_dropped = sm.fuse_and_render(
+        state.map, frame, new_pose, ts, cfg.data, cfg.map, conf_threshold,
+        (ts + 1) - cfg.loop.delta_timestamp, semantic=cfg.semantic.enabled,
+        refresh=refresh, stopwatch=stopwatch)
+    new_state = SlamState(map=new_map, pose=new_pose, last_increment=increment,
+                          last_maps=data_maps, model_maps=model_maps,
+                          timestamp=ts + 1)
+    return new_state, n_created, n_dropped
+
+
+class _Eager:
+    """The stages called as they are. A ``core.step_graph.StepGraphs`` has
+    the same methods and replays them as CUDA graphs."""
+
+    @staticmethod
+    def enter(state: SlamState) -> SlamState:
+        return state
+
+    preprocess = staticmethod(preprocess_stage)
+    align = staticmethod(align_stage)
+    fuse = staticmethod(fuse_stage)
+
+    @staticmethod
+    def pack(info: "StepInfo", block_count) -> torch.Tensor:
+        return _pack_step_info(info, block_count)
+
+
+_EAGER = _Eager()
+
+
 def odometry_step(state: SlamState, points: torch.Tensor,
                   labels: torch.Tensor, probs: torch.Tensor,
                   point_valid: torch.Tensor, conf_threshold,
                   cfg: SumaConfig, timer: StageTimer | None = None,
-                  stopwatch: Stopwatch | None = None):
+                  stopwatch: Stopwatch | None = None, graphs=None):
     """Process one scan. Returns (new_state, StepInfo). The input state is
     consumed: its map arena and pose table are updated in place. The step
     reads the host once, for the branch flags (twice on a scan whose
     fallback runs). With a ``stopwatch`` its stages are the spans
     ``step/preprocess``, ``step/gauss_newton`` (holding ``step/flags``, each
     read of the flags) and ``step/fuse_render`` (holding
-    ``surfel_map.fuse_and_render``'s ``fuse/*``)."""
+    ``surfel_map.fuse_and_render``'s ``fuse/*`` where it runs eagerly).
+
+    ``graphs`` (a ``core.step_graph.StepGraphs``) runs the stages through
+    its CUDA graphs: the state then lives in the graphs' buffers, and the
+    returned state is those buffers, updated in place."""
+    stages = _EAGER if graphs is None else graphs
     dev = state.pose.device
     reads0 = to_host.count
-    ts = state.timestamp
-    semantic = cfg.semantic.enabled
+    state = stages.enter(state)
 
     with _stage(stopwatch, timer, dev, "preprocess", first=True):
-        data_maps = preprocess_scan(points, labels, probs, point_valid,
-                                    ts < cfg.semantic.init_scans, cfg)
+        data_maps = stages.preprocess(state, points, labels, probs,
+                                      point_valid, cfg)
 
     with _stage(stopwatch, timer, dev, "gauss_newton"):
-        ref_maps = state.model_maps if cfg.approach == "frame-to-model" \
-            else state.last_maps
-        eye = torch.eye(4, dtype=torch.float32, device=dev)
-        t0 = eye if cfg.icp.initialize_identity else state.last_increment
-
-        result = icp_ops.gauss_newton(data_maps, ref_maps, t0, cfg.icp,
-                                      cfg.model, semantic=semantic)
-        iterations = result.iterations
-
-        # the branch flags, read together: the track-loss fallback (the
-        # increment jumps w.r.t. the motion model: redo the alignment
-        # frame-to-frame with tighter gates) and the view refresh at the
-        # pose
-        increment, moved, need = pose_and_refresh(state.pose, result.pose,
-                                                  ts, state.map, cfg)
-        jump = jump_flag(state.last_increment, result.pose, ts, cfg.icp) \
-            if cfg.icp.fallback_mode else None
+        aligned = stages.align(state, data_maps, cfg)
+        increment = aligned.increment
         with span(stopwatch, "step/flags"):
-            jumped, refresh, new_pose = read_flags(jump, need, moved)
+            jumped, refresh, new_pose = read_flag_vector(aligned.flags,
+                                                         aligned.moved)
         if jumped:
             recovery_cfg = replace(cfg.icp,
                                    max_distance=cfg.icp.fallback_max_distance,
                                    max_angle=cfg.icp.fallback_max_angle)
-            rec = icp_ops.gauss_newton(data_maps, state.last_maps, t0,
-                                       recovery_cfg, cfg.data,
-                                       semantic=semantic)
-            increment, moved, need = pose_and_refresh(state.pose, rec.pose,
-                                                      ts, state.map, cfg)
+            rec = icp_ops.gauss_newton(data_maps, state.last_maps,
+                                       _t0(state, cfg), recovery_cfg,
+                                       cfg.data, semantic=cfg.semantic.enabled)
+            increment, moved, need = pose_and_refresh(
+                state.pose, rec.pose, state.timestamp, state.map, cfg)
             with span(stopwatch, "step/flags"):
                 _, refresh, new_pose = read_flags(None, need, moved)
 
     with _stage(stopwatch, timer, dev, "fuse_render"):
-        frame = sm.data_surfel_init(data_maps, cfg.data, cfg.map)
-        new_map, model_maps, n_created, n_dropped = sm.fuse_and_render(
-            state.map, frame, new_pose, ts, cfg.data, cfg.map, conf_threshold,
-            (ts + 1) - cfg.loop.delta_timestamp, semantic=semantic,
-            refresh=refresh, stopwatch=stopwatch)
+        new_state, n_created, n_dropped = stages.fuse(
+            state, data_maps, new_pose, increment, refresh, conf_threshold,
+            cfg, stopwatch)
 
-    new_state = SlamState(map=new_map, pose=new_pose, last_increment=increment,
-                          last_maps=data_maps, model_maps=model_maps,
-                          timestamp=ts + 1)
-    info = StepInfo(pose=new_pose, increment=increment, stats=result.stats,
-                    iterations=iterations, track_loss=jumped,
-                    n_created=n_created, n_dropped=n_dropped,
-                    map_count=new_map.count,
+    result = aligned.result
+    info = StepInfo(pose=new_state.pose, increment=new_state.last_increment,
+                    stats=result.stats, iterations=result.iterations,
+                    track_loss=jumped, n_created=n_created,
+                    n_dropped=n_dropped, map_count=new_state.map.count,
                     syncs=to_host.count - reads0)
     return new_state, info
 
@@ -291,17 +381,21 @@ def _pack_step_info(info: StepInfo, block_count) -> torch.Tensor:
 def odometry_step_fetch(state: SlamState, points, labels, probs, point_valid,
                         conf_threshold, cfg: SumaConfig,
                         timer: StageTimer | None = None,
-                        stopwatch: Stopwatch | None = None):
+                        stopwatch: Stopwatch | None = None, graphs=None):
     """:func:`odometry_step` and the packing of its results: returns
     ``(new_state, packed[50])``, so that the host loop reads one vector a
     scan. With a ``stopwatch`` both are the span ``step``, the packing its
-    child ``step/pack``."""
+    child ``step/pack``. ``graphs``: as :func:`odometry_step`; the packed
+    vector is then a buffer of the graphs that the next step rewrites, to
+    be copied before it runs (``AsyncFetch`` enqueues its copy at once)."""
     with span(stopwatch, "step"):
         new_state, info = odometry_step(state, points, labels, probs,
                                         point_valid, conf_threshold, cfg,
-                                        timer=timer, stopwatch=stopwatch)
+                                        timer=timer, stopwatch=stopwatch,
+                                        graphs=graphs)
         with span(stopwatch, "step/pack"):
-            packed = _pack_step_info(info, new_state.map.block_count)
+            packed = (_EAGER if graphs is None else graphs).pack(
+                info, new_state.map.block_count)
     return new_state, packed
 
 
@@ -333,17 +427,19 @@ def odometry_run(state: SlamState, points, labels, probs, point_valid,
 def odometry_chunk_fetch(state: SlamState, points, labels, probs,
                          point_valid, conf_thresholds, cfg: SumaConfig,
                          timer: StageTimer | None = None,
-                         stopwatch: Stopwatch | None = None):
+                         stopwatch: Stopwatch | None = None, graphs=None):
     """K scans (leading axis) in one dispatch -> ``(state, packed[K, 50])``:
-    each scan's packed results (:func:`odometry_step_fetch`) are written into
-    one device tensor, which the host loop reads with one fetch. The steps' own
-    host reads (``StepInfo.syncs``) still happen inside."""
+    each scan's packed results (:func:`odometry_step_fetch`, through
+    ``graphs`` where given) are written into one device tensor, which the
+    host loop reads with one fetch. The steps' own host reads
+    (``StepInfo.syncs``) still happen inside."""
     k = points.shape[0]
     infos = torch.empty((k, 50), dtype=torch.float32, device=points.device)
     for i in range(k):
         state, infos[i] = odometry_step_fetch(
             state, points[i], labels[i], probs[i], point_valid[i],
-            conf_thresholds[i], cfg, timer=timer, stopwatch=stopwatch)
+            conf_thresholds[i], cfg, timer=timer, stopwatch=stopwatch,
+            graphs=graphs)
     return state, infos
 
 
@@ -690,7 +786,14 @@ class SurfelSLAM(HostLoop):
     the host-RAM spill of the arena (``cfg.map.spill_enabled``) and (when
     enabled) the loop-closure state machine. Runs on the card unless the
     caller names another device. ``chunk_size=K`` batches K scans a
-    dispatch in ``process_scan_async`` when loop closure is off."""
+    dispatch in ``process_scan_async`` when loop closure is off.
+
+    On a card the step runs through ``core.step_graph.StepGraphs``: the
+    state lives in the graphs' buffers and is updated in place, scan after
+    scan, and a session that is collected hands graphs and buffers to the
+    next session of its configuration, which reuses its arena. Keep a
+    session, not only its ``state``, for as long as its device state is
+    read."""
 
     # the LoopCloser uses the one-fetch verification/search programs here
     supports_fused_verify = True
@@ -700,7 +803,17 @@ class SurfelSLAM(HostLoop):
         dev = resolve_device(device)
         super().__init__(cfg, cfg.map, cfg.data.height * cfg.data.width, dev,
                          pipeline_depth, enable_loop_closure)
-        self.state = init_state(cfg, self.device)
+        # the step's stages as CUDA graphs on a card (core/step_graph): the
+        # state then lives in their buffers. A finished session of the same
+        # configuration hands its graphs and buffers on to the next, whose
+        # first state takes that session's arena and active view
+        self._graphs = None
+        if self.device.type == "cuda":
+            from .step_graph import StepGraphs
+            self._graphs = StepGraphs.for_session(self)
+        self.state = init_state(
+            cfg, self.device,
+            reuse=None if self._graphs is None else self._graphs.state)
         # scans a dispatch of process_scan_async (loop closure off), and the
         # prepared scans waiting for their chunk
         self.chunk_size = max(1, chunk_size)
@@ -725,12 +838,21 @@ class SurfelSLAM(HostLoop):
 
     def _put_map(self, new_map: sm.MapState) -> None:
         self.state = self.state._replace(map=new_map)
+        self._install()
+
+    def _install(self) -> None:
+        """Copy a state the host replaced into the step graphs' buffers at
+        once, so that the replaced tensors are freed as soon as they would
+        be without graphs."""
+        if self._graphs is not None and self._graphs.state is not None:
+            self.state = self._graphs.enter(self.state)
 
     def _step(self, points, labels, probs, point_valid, conf_threshold):
         reads0 = to_host.count
         self.state, packed = odometry_step_fetch(
             self.state, points, labels, probs, point_valid, conf_threshold,
-            self.cfg, timer=self.timer, stopwatch=self.stopwatch)
+            self.cfg, timer=self.timer, stopwatch=self.stopwatch,
+            graphs=self._graphs)
         return packed, to_host.count - reads0
 
     def _dispatch_chunk(self) -> None:
@@ -748,7 +870,8 @@ class SurfelSLAM(HostLoop):
         reads0 = to_host.count
         self.state, infos = odometry_chunk_fetch(
             self.state, pts, lab, prb, val, [e[4] for e in entries],
-            self.cfg, timer=self.timer, stopwatch=self.stopwatch)
+            self.cfg, timer=self.timer, stopwatch=self.stopwatch,
+            graphs=self._graphs)
         self._pending.append((AsyncFetch(infos), t_start,
                               to_host.count - reads0, len(entries)))
         self.stopwatch.record("dispatch", time.perf_counter() - t_start)
@@ -776,6 +899,7 @@ class SurfelSLAM(HostLoop):
 
     def set_model_maps(self, maps) -> None:
         self.state = self.state._replace(model_maps=maps)
+        self._install()
 
     # -- out-of-band map operations (loop closure, rebase, compaction) -----
     def _tensor(self, x) -> torch.Tensor:
@@ -865,6 +989,7 @@ class SurfelSLAM(HostLoop):
             self.timestamp - self.cfg.loop.delta_timestamp, render_old=False)
         self.state = self.state._replace(map=new_map, pose=cur,
                                          model_maps=model_maps)
+        self._install()
         for i in range(min(len(new_poses), len(self.poses))):
             self.poses[i] = np.asarray(new_poses[i])
         if self.spill is not None and self.spill.chunks:

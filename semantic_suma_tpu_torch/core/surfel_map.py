@@ -149,15 +149,26 @@ def _fresh_view(nb: int, k: int, f: int, first_fresh, device) -> torch.Tensor:
     return torch.cat([pads, fresh])
 
 
-def empty_map(cfg: MapConfig, device) -> MapState:
+def empty_map(cfg: MapConfig, device,
+              reuse: MapState | None = None) -> MapState:
+    """A map with nothing in it. ``reuse``: a map of the same configuration
+    that nothing else uses any more, whose arena and active view are zeroed
+    in place and taken instead of new ones."""
     bs, nb, k, f = _geometry(cfg)
+    if reuse is None:
+        data = make_packed(cfg.surfel_capacity, device)
+        active = make_packed(cfg.active_capacity, device)
+    else:
+        data, active = reuse.data, reuse.active
+        for t in (*data, *active):
+            t.zero_()
     return MapState(
-        data=make_packed(cfg.surfel_capacity, device),
+        data=data,
         count=torch.zeros((), dtype=torch.int32, device=device),
         poses=torch.eye(4, dtype=torch.float32, device=device).repeat(
             cfg.max_poses, 1, 1),
         active_blocks=_fresh_view(nb, k, f, 0, device),
-        active=make_packed(cfg.active_capacity, device),
+        active=active,
         active_count=torch.full((), (k - f) * bs, dtype=torch.int32,
                                 device=device),
         block_count=torch.zeros((), dtype=torch.int32, device=device),

@@ -90,6 +90,11 @@ def zbuffer_cells_plain(ids, depth, flags, num_cells: int, *, exact: bool,
     return winner, wdepth
 
 
+class FirstCallUnderCapture(RuntimeError):
+    """The first call of a table size, made while a CUDA graph is being
+    captured (the caller runs it outside the capture instead)."""
+
+
 def _empty_table(dev: torch.device, size: int) -> torch.Tensor:
     """The key table of (device, size), every cell the empty key. The kernel
     leaves it so after each call. Tables are never released."""
@@ -98,8 +103,9 @@ def _empty_table(dev: torch.device, size: int) -> torch.Tensor:
         if torch.cuda.is_current_stream_capturing():
             # the fill would be captured, not run, and the table would live
             # in the graph's private pool
-            raise RuntimeError("zbuffer: the first call of a table size must "
-                               "be made outside CUDA-graph capture")
+            raise FirstCallUnderCapture("zbuffer: the first call of a table "
+                                        "size must be made outside CUDA-"
+                                        "graph capture")
         table = torch.full((size,), _EMPTY, dtype=torch.int64, device=dev)
         _tables[(dev, size)] = table
     return table
