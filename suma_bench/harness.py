@@ -3,7 +3,10 @@
 * ``BENCHMARK.json`` at the checkout's root names each cell's configuration
   (``configs/<name>.json``) and traffic mix (``traffic/<name>.json``); the
   limits of its check are ``limits/<cell>.json``; each per-layer metric is
-  read by ``metrics/<metric>.py``, which defines ``read(record)``.
+  read by ``metrics/<metric>.py``, which defines ``read(record)``; the
+  segmentation network a configuration's ``segmenter`` group names by
+  ``arch`` has its plain reference, FLOP count and weights reader in
+  ``nets/<arch>.py`` (``nets/__init__.py`` gives the contract).
 * The reduction of a profiler trace (Chrome format) to the device's busy
   time, its idle gaps under the benchmark's own spans, and the device
   operations that took the most time.
@@ -19,6 +22,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 CACHE = ROOT / ".cache" / "suma_bench"
+NETS = HERE / "nets"
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "semantic_suma_tpu")
 
@@ -46,6 +50,12 @@ def cell(name: str, root: Path = ROOT) -> dict:
         raise KeyError(f"no cell {name!r} in BENCHMARK.json")
     w = found[0]
     here = root / HERE.name
+    config = load_json(here / "configs" / f"{w['config']}.json")
+    if config.get("segmenter") is not None \
+            and "arch" not in config["segmenter"]:
+        raise ValueError(f"configs/{w['config']}.json: the segmenter group "
+                         "names no \"arch\", the network module "
+                         "nets/<arch>.py")
     e2e = [m for m in bench["end_to_end"]
            if name in m.get("workloads", [name])]
     moved = {m["name"] for m in e2e}
@@ -53,7 +63,7 @@ def cell(name: str, root: Path = ROOT) -> dict:
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in moved)]
     return {"cell": w,
-            "config": load_json(here / "configs" / f"{w['config']}.json"),
+            "config": config,
             "traffic": load_json(here / "traffic" / f"{w['traffic']}.json"),
             "limits": load_json(here / "limits" / f"{name}.json"),
             "end_to_end": e2e, "per_layer": per_layer}
@@ -68,14 +78,29 @@ def merge(base: dict, over: dict) -> dict:
     return out
 
 
-def reader(metric: str, root: Path = ROOT):
-    """``metrics/<metric>.py`` loaded as a module (the name may hold dots)."""
-    path = root / HERE.name / "metrics" / f"{metric}.py"
+def _load(path: Path, kind: str, name: str):
+    """The file ``path`` loaded as a module (``name`` may hold dots)."""
     spec = importlib.util.spec_from_file_location(
-        f"suma_bench_metric_{metric.replace('.', '_')}", path)
+        f"suma_bench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(metric: str, root: Path = ROOT):
+    """``metrics/<metric>.py`` loaded as a module."""
+    return _load(root / HERE.name / "metrics" / f"{metric}.py", "metric",
+                 metric)
+
+
+def net(arch: str):
+    """``nets/<arch>.py`` loaded as a module: the plain reference network of
+    the architecture ``arch``, its weights reader and its FLOP count."""
+    path = NETS / f"{arch}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no network module {path} for the "
+                                f"segmenter's arch {arch!r}")
+    return _load(path, "net", arch)
 
 
 def read_metrics(names, record: dict, root: Path = ROOT) -> dict:

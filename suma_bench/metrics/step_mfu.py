@@ -1,8 +1,8 @@
 """The whole step's share of the card's bfloat16 peak, %: the network's
-forward FLOPs from its layer shapes, times the window's scans, over the
-window's time (host clock) and over 989 TFLOP/s. SLAM's own FLOPs are left
-out (under 0.1 GFLOP a scan, against 272.6 for the network). Moves
-scans_per_s."""
+forward FLOPs from its layer shapes (`nets/<arch>.py`), times the window's
+scans, over the window's time (host clock) and over 989 TFLOP/s. SLAM's own
+FLOPs are left out (under 0.1 GFLOP a scan, against 601.6 for darknet53 at
+64x2048). Moves scans_per_s."""
 from suma_bench import yardstick
 
 

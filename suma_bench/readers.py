@@ -7,8 +7,11 @@ The record (``run.run_cell``) holds, over the window: ``scans``,
 sessions' ``Stopwatch`` totals in seconds, by label), ``stages``
 (``StageTimer``'s mean ms by stage), ``segmenter_ms`` (the mean span of
 a ``Segmenter`` call, by CUDA events), ``flops_per_scan`` (the network's forward), the
-shapes of a Gauss-Newton call (``data_pixels``, ``model_cells``), and
-``trace``, the profiled scans reduced by ``harness.reduce_trace``."""
+shapes of a Gauss-Newton call (``data_pixels``, ``model_cells``),
+``trace``, the profiled scans reduced by ``harness.reduce_trace``, and
+``spans``, the same trace reduced to the program's span table by
+``spans.reduce`` (``{"scans", "segmenter_calls", "device_ops", "spans":
+{name: row}}``, each row's figures per scan, ``segmenter/*`` per call)."""
 
 from __future__ import annotations
 
@@ -59,3 +62,12 @@ def device_idle_share(rec):
     if not trace or trace["busy_s"] <= 0.0:
         return None
     return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
+
+
+def span_row(rec, name):
+    """The span table's row ``name``; None where the run traced no device
+    operation or the program opened no such span."""
+    table = rec.get("spans")
+    if not table or not table["device_ops"]:
+        return None
+    return table["spans"].get(name)

@@ -27,9 +27,10 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from .. import harness
 from .slam import config as rc
 from .slam.core.pipeline import SurfelSLAM
-from .slam.models.rangenet import RangeNet, make_input
+from .slam.models.rangenet import make_input
 from .slam.ops.knn import labels_for_points
 from .slam.ops.projection import project_scan
 
@@ -62,44 +63,19 @@ def precision(mode: str):
          torch.backends.cudnn.allow_tf32) = old
 
 
-def _flat(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flat(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
-def _state_from_flax(variables) -> dict:
-    """A ``RangeNet`` state dict from the weights file's flax variables."""
-    out = {}
-    for coll in ("params", "batch_stats"):
-        for path, a in _flat(variables.get(coll, {})):
-            *mods, leaf = path
-            a = np.asarray(a, dtype=np.float32)
-            if leaf == "kernel":
-                if mods[-1].startswith("ConvTranspose"):
-                    a = a.transpose(2, 3, 0, 1)[..., ::-1]
-                else:
-                    a = a.transpose(3, 2, 0, 1)
-                leaf = "weight"
-            out[".".join(mods + [leaf])] = torch.from_numpy(np.array(a))
-    return out
-
-
 class Network:
-    """The segmenter's network, read from the weights file: ``float32``
-    (the reference) or ``fp8`` (the control) convolutions; batch norm and
-    the head in float32."""
+    """The segmenter's network, ``nets/<arch>.py`` of the group's ``arch``,
+    read from the weights file: ``float32`` (the reference) or ``fp8`` (the
+    control) convolutions."""
 
     def __init__(self, seg: dict, device, mode: str = "fp32",
                  weights_path: str | None = None):
+        arch = harness.net(seg["arch"])
         with open(weights_path or seg["weights"], "rb") as f:
             blob = pickle.load(f)
         dtype = torch.float8_e4m3fn if mode == "fp8" else torch.float32
-        self.net = RangeNet(seg["num_classes"], tuple(seg["stage_blocks"]),
-                            tuple(seg["widths"]), dtype=dtype)
-        self.net.load_state_dict(_state_from_flax(blob["variables"]))
+        self.net = arch.build(seg, dtype)
+        self.net.load_state_dict(arch.state_dict(blob, seg))
         self.net = self.net.to(device).eval().requires_grad_(False)
         self.data = rc.DataConfig(**seg["data"])
         self.use_knn = seg["use_knn"]

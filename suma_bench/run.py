@@ -36,7 +36,7 @@ from pathlib import Path  # noqa: E402
 if __package__ in (None, ""):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from suma_bench import generator, harness, yardstick  # noqa: E402
+from suma_bench import generator, harness, spans, yardstick  # noqa: E402
 
 GIB = float(1 << 30)
 
@@ -336,10 +336,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             record["segmenter_ms"] = sum(a.elapsed_time(b) for a, b in
                                          rep.seg_events) / len(rep.seg_events)
         if segj is not None:
-            record["flops_per_scan"] = yardstick.rangenet_forward_flops(
-                segj["data"]["height"], segj["data"]["width"],
-                segj["stage_blocks"],
-                segj["widths"], segj["num_classes"])
+            record["flops_per_scan"] = harness.net(
+                segj["arch"]).forward_flops(segj)
         if rep.profile is not None:
             path = harness.CACHE / "trace.json"
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -349,6 +347,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             events = events.get("traceEvents", events)
             traced = harness.reduce_trace(events)
             record["trace"] = traced
+            record["spans"] = spans.reduce(events)
             path.unlink()
 
     # -- the check ----------------------------------------------------------

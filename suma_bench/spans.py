@@ -21,9 +21,10 @@ A scan is a ``step`` span; the ``segmenter/*`` names are per ``segmenter``,
 the benchmark's span around each segmenter call. A program that emits no
 span gives an empty table.
 
-The runner's result line does not carry the table. To read it, run a cell
-traced through this module, which runs it as ``run.py --trace 1`` does and
-reduces the same trace:
+A traced run of the runner keeps the table in its record
+(``record["spans"]``), where metric readers find it; its result line does not
+carry it. To read it, run a cell traced through this module, which runs it
+as ``run.py --trace 1`` does and reduces the same trace:
 
     python3 -m suma_bench.spans --workload <cell> --seed <n> --seconds <s>
 

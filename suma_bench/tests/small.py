@@ -7,7 +7,8 @@ SMALL_SUMA = {"data": {"height": 32, "width": 180},
               "map": {"surfel_capacity": 1 << 16, "active_capacity": 1 << 15,
                       "min_fresh_rows": 8640, "max_poses": 512}}
 SMALL_SENSOR = {"rings": 32, "columns": 400}
-MID_NETWORK = {"weights": "weights/segmenter_synth_mid.pkl",
+MID_NETWORK = {"arch": "rangenet_darknet",
+               "weights": "weights/segmenter_synth_mid.pkl",
                "data": {"height": 32, "width": 400},
                "stage_blocks": [1, 1, 2, 2, 1],
                "widths": [32, 64, 128, 192, 256, 320]}

@@ -1,8 +1,9 @@
 """The benchmark's yardstick, frozen here so that a later change to the port
 cannot move it: the trajectory error arithmetic (a copy of the port's
 ``utils/metrics.py``: the aligned ATE and the KITTI devkit's t_rel/r_rel),
-the published peaks of one NVIDIA H100, and the work of each measured part
-computed from shapes (kernel F's bytes, the segmenter's forward FLOPs)."""
+the published peaks of one NVIDIA H100, and kernel F's bytes computed from
+shapes. A segmentation network's forward FLOPs are its own module's,
+``nets/<arch>.py``."""
 
 from __future__ import annotations
 
@@ -70,46 +71,3 @@ def gn_call_bytes(data_pixels: int, model_cells: int) -> int:
     (8 B); a model cell of the packed model image (32 B); the state read and
     written. 3,801,824 B for a 64x900 scan against a 64x900 model."""
     return data_pixels * 34 + model_cells * 32 + 2 * GN_STATE_BYTES
-
-
-def _same_out(size: int, stride: int) -> int:
-    return -(-size // stride)
-
-
-def rangenet_forward_flops(height: int, width: int, stage_blocks, widths,
-                           num_classes: int = 20, in_channels: int = 5) -> int:
-    """Multiply-adds times two of one forward of the darknet RangeNet of
-    ``stage_blocks`` and ``widths`` on one ``height x width`` image, the width
-    wrap-padded to a multiple of ``2 ** len(stage_blocks)``: every
-    convolution ``2 * cout * cin * kh * kw * out_h * out_w``, every transposed
-    convolution ``2 * cin * cout * kh * kw * in_h * in_w``; batch norms,
-    activations and sums are left out (under 0.1%)."""
-    w = width + (-width) % (2 ** len(stage_blocks))
-    h = height
-    flops = 0
-
-    def conv(cin, cout, k, wi, stride=1):
-        nonlocal flops
-        wo = _same_out(wi, stride)
-        flops += 2 * cout * cin * k[0] * k[1] * h * wo
-        return wo
-
-    c = widths[0]
-    cur = conv(in_channels, c, (3, 3), w)
-    cols = [cur]
-    for blocks, width_ in zip(stage_blocks, widths[1:]):
-        cur = conv(c, width_, (3, 3), cur, 2)
-        for _ in range(blocks):
-            conv(width_, width_ // 2, (1, 1), cur)
-            conv(width_ // 2, width_, (3, 3), cur)
-        c = width_
-        cols.append(cur)
-    for width_ in reversed(widths[:-1]):
-        flops += 2 * c * width_ * 1 * 4 * h * cur   # (1, 4) stride (1, 2)
-        cur *= 2
-        conv(width_, width_, (1, 1), cur)
-        conv(width_, width_ // 2, (1, 1), cur)
-        conv(width_ // 2, width_, (3, 3), cur)
-        c = width_
-    conv(widths[0], num_classes, (1, 1), cur)
-    return flops
