@@ -12,6 +12,8 @@
   python -m semantic_suma_tpu_torch.cli run --synthetic 150 --resume s.npz
   python -m semantic_suma_tpu_torch.cli train-segmenter --synthetic 96 --mid \\
       --steps 2000 --batch 8 --lr 2e-3 --out w.pkl
+  python -m semantic_suma_tpu_torch.cli train-segmenter --arch salsanext \\
+      --synthetic 96 --steps 3000 --batch 8 --lr 2e-3 --out w.pkl
 
 Every command goes to the GPU unless the top-level ``--cpu`` is given;
 without a GPU it fails rather than falling back to the CPU. The printed
@@ -490,6 +492,9 @@ def cmd_eval(args) -> int:
 
 def _train_model(args):
     from .models import rangenet as rn
+    from .models import salsanext as sn
+    if args.arch == "salsanext":
+        return sn.small_salsanext() if args.small else sn.SalsaNext()
     return (rn.small_rangenet() if args.small
             else rn.mid_rangenet() if args.mid else rn.RangeNet())
 
@@ -602,7 +607,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     trainp.add_argument("--seed", type=int, default=0)
     trainp.add_argument("--val-fraction", type=float, default=0.1,
                         help="held-out fraction for mIoU (dataset mode)")
-    trainp.add_argument("--small", action="store_true")
+    trainp.add_argument("--arch", choices=("rangenet_darknet", "salsanext"),
+                        default="rangenet_darknet",
+                        help="the network: RangeNet++'s darknet "
+                             "(models.rangenet) or SalsaNext "
+                             "(models.salsanext)")
+    trainp.add_argument("--small", action="store_true",
+                        help="the test-sized variant of --arch")
     trainp.add_argument("--mid", action="store_true",
                         help="darknet21-depth deployment net (see "
                              "models.rangenet.mid_rangenet)")
@@ -613,6 +624,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("run requires --dataset or --synthetic")
     if args.cmd == "train-segmenter" and not (args.dataset or args.synthetic):
         ap.error("train-segmenter requires --dataset or --synthetic")
+    if args.cmd == "train-segmenter" and args.mid \
+            and args.arch != "rangenet_darknet":
+        ap.error("--mid is a darknet network; it takes no --arch")
     return args
 
 

@@ -1,7 +1,10 @@
 """Carry state across from the JAX package: the simulated world, the SLAM
 state (a sharded session's shards too), the pose graph and the loop closer's
-host state, so both packages can start from the same mid-run point; the segmenter's weights both ways; and
-the state of its optimizer (optax's AdamW) into the port's.
+host state, so both packages can start from the same mid-run point; the
+segmenter's weights both ways (flax variables for the darknet RangeNet; for
+a network that has no flax tree, SalsaNext, the module's own state dict as
+numpy arrays); and the state of its optimizer (optax's AdamW) into the
+port's.
 
 Nothing here imports JAX: the inputs are duck-typed (a JAX ``World``'s boxes,
 or a JAX ``SlamState`` / ``MapState`` whose leaves were turned into numpy
@@ -197,6 +200,24 @@ def flax_variables_from_rangenet(state_dict) -> dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(a)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the weights of a network that has no flax tree (SalsaNext): the module's
+# own state dict, {dotted key: array} in PyTorch's layout, under the blob's
+# "variables"
+# ---------------------------------------------------------------------------
+
+def arrays_from_state(state_dict) -> dict:
+    """A module's state dict as the weights file keeps it: ``{key: numpy
+    array}``, the keys and layouts PyTorch's."""
+    return {k: np.ascontiguousarray(t.detach().cpu().numpy())
+            for k, t in state_dict.items()}
+
+
+def state_from_arrays(arrays) -> dict:
+    """The reverse of :func:`arrays_from_state`."""
+    return {k: torch.from_numpy(np.array(a)) for k, a in arrays.items()}
 
 
 def adamw_state_from_optax(opt_state, model) -> dict:

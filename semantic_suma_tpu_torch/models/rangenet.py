@@ -52,6 +52,11 @@ def _same_pads(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def _pair(v) -> tuple:
+    """An int or an (h, w) pair as an (h, w) pair."""
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
     """flax's default kernel init: a normal truncated at two deviations,
     scaled to variance 1 / fan_in."""
@@ -71,16 +76,24 @@ def _column_parallel(group, x: torch.Tensor, conv) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with ``padding="SAME"``; ``weight`` is
-    ``[out, in, kh, kw]``. With a ``model_group`` the weight holds this
-    rank's slice of the output channels (:func:`_column_parallel`)."""
+    """flax ``nn.Conv`` with ``padding="SAME"``, or with the explicit
+    symmetric ``padding`` (an int or an (h, w) pair, PyTorch's reading) and
+    ``dilation`` of a network that has no flax counterpart (SalsaNext's 2x2
+    kernel at dilation 2, padded by 1); ``weight`` is ``[out, in, kh, kw]``.
+    With a ``model_group`` the weight holds this rank's slice of the output
+    channels (:func:`_column_parallel`)."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3), stride=(1, 1),
-                 bias: bool = False, dtype=torch.bfloat16):
+                 bias: bool = False, dtype=torch.bfloat16, dilation=1,
+                 padding=None):
         super().__init__()
         self.kernel = tuple(kernel)
         self.stride = tuple(stride)
         self.dtype = dtype
+        self.dilation = _pair(dilation)
+        self.padding = None if padding is None else _pair(padding)
+        if self.padding is None and self.dilation != (1, 1):
+            raise ValueError("a dilated Conv takes an explicit padding")
         self.weight = nn.Parameter(torch.zeros(cout, cin, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.model_group = None
@@ -92,8 +105,11 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (hl, hh), (wl, wh) = (_same_pads(x.shape[2 + a], self.kernel[a],
-                                         self.stride[a]) for a in (0, 1))
+        if self.padding is None:
+            (hl, hh), (wl, wh) = (_same_pads(x.shape[2 + a], self.kernel[a],
+                                             self.stride[a]) for a in (0, 1))
+        else:
+            (hl, wl), (hh, wh) = self.padding, self.padding
         b = None if self.bias is None else self.bias.to(self.dtype)
 
         def conv(x, b):
@@ -104,7 +120,7 @@ class Conv(nn.Module):
             else:
                 x = F.pad(x, (wl, wh, hl, hh))
             return F.conv2d(x, self.weight.to(self.dtype), b, self.stride,
-                            pad)
+                            pad, self.dilation)
 
         if self.model_group is None:
             return conv(x, b)
