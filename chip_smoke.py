@@ -94,6 +94,13 @@ and the exit code is non-zero:
      against a CPU copy's: label agreement >= 0.99 on valid pixels; the ms
      of a call by stage (projection, network, KNN vote + labels), its peak
      memory, and no host sync in a call;
+     ``[segmenter-graph]``: both benchmark networks (darknet53,
+     SalsaNext) through ``Segmenter.__call__`` on 6 consecutive 64x2048
+     scans of their cells, an eager call, a capture, replays: logits,
+     labels and probabilities equal to the eager path's bit for bit, no
+     host sync in a replayed call, at most 4 launches in its network span;
+     launches, capture ms, ms a call and memory before and after the
+     capture printed;
  14. kernel C (KNN label vote) against its plain version at 64x900 on two
      random inputs (forced depth ties, +-inf, NaN, all-invalid rows, ties
      across the wrap seam), an input of runs of equal range differences
@@ -2831,6 +2838,167 @@ def phase_segmenter(dev):
     return real
 
 
+# the benchmark cells whose networks [segmenter-graph] replays, and how many
+# consecutive scans of a sequence each runs: an eager call, a capture, replays
+SEGMENTER_GRAPH_CELLS = ("sumapp-rangenet53-offline",
+                         "sumapp-salsanext-offline")
+SEGMENTER_GRAPH_SCANS = 6
+# launches a replayed call of the span segmenter/network may make: the
+# input's copy and the graph's launch, with room
+SEGMENTER_GRAPH_MAX_LAUNCHES = 4
+
+
+def _launch_calls(fn) -> float:
+    """The host's calls that put work on the card in one call of ``fn``
+    (``_launch_rows``: a graph's launch is one)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _launch_rows(prof, 1)[1]
+
+
+def _segmenter_spans(fn) -> dict:
+    """The span table of one call of ``fn`` (a segmenter call), reduced as
+    the benchmark reduces its traced scans (``suma_bench.spans.reduce``):
+    ``{span: {"launches", "busy_ms", "host_ms", ...}}``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from suma_bench import spans
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("traced"):
+            with record_function("segmenter"):
+                fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+    return spans.reduce(events.get("traceEvents", events))["spans"]
+
+
+def _memory() -> dict:
+    return {"allocated": torch.cuda.memory_allocated(),
+            "max_allocated": torch.cuda.max_memory_allocated(),
+            "max_reserved": torch.cuda.max_memory_reserved()}
+
+
+def phase_segmenter_graph(dev):
+    """``[segmenter-graph]``: ``Segmenter.__call__``'s network as a CUDA
+    graph, for the network of each of ``SEGMENTER_GRAPH_CELLS`` (darknet53,
+    SalsaNext) on ``SEGMENTER_GRAPH_SCANS`` consecutive 64x2048 scans of
+    its cell's sequence (the benchmark's generator): the first call eager,
+    the second a capture, the rest replays. Held: every call's logits (a
+    forward hook on ``net``, as the benchmark's check reads them), labels
+    and probabilities equal bit for bit to the eager path's (projection,
+    ``Segmenter.logits``, the vote); one capture and the replays after it;
+    no host sync in a replayed call (CUDA sync debug mode); at most
+    ``SEGMENTER_GRAPH_MAX_LAUNCHES`` launches in a replayed call's
+    ``segmenter/network`` span (``spans.reduce``, as ``network_launches``
+    reads it). Printed: launch calls of a whole call and of the network,
+    eager and replayed; the capture's host ms; ms a call eager and replayed
+    (CUDA events, back-to-back calls); memory allocated, peak allocated
+    and peak reserved before and after the capture."""
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.models.rangenet import make_input
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    from semantic_suma_tpu_torch.ops.knn import labels_for_points
+    from semantic_suma_tpu_torch.ops.projection import project_scan
+    from suma_bench import harness
+
+    n = SEGMENTER_GRAPH_SCANS
+    for cell in SEGMENTER_GRAPH_CELLS:
+        segj = harness.cell(cell)["config"]["segmenter"]
+        _, _, scans = _cell_sequence(dev, cell, 11)
+        scans = scans[:n]
+        cfg = DataConfig(**segj["data"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        seg = Segmenter.load(str(harness.ROOT / segj["weights"]), cfg,
+                             use_knn=segj["use_knn"], device=dev)
+
+        def net_input(pts):
+            res = project_scan(pts, remissions=torch.zeros_like(pts[:, 0]),
+                               cfg=cfg)
+            return res, make_input(res.vertex_map, res.depth_map,
+                                   res.remission, res.vertex_valid)[None]
+
+        def eager(pts):
+            res, x = net_input(pts)
+            logits = seg.logits(x)[0]
+            depth = torch.linalg.vector_norm(pts, dim=-1)
+            return (logits, *labels_for_points(
+                logits, res.point_px.clamp_min(0), res.point_py.clamp_min(0),
+                depth, res.point_px >= 0, res.depth_map,
+                use_knn=seg.use_knn))
+
+        box = {}
+        hook = seg.net.register_forward_hook(
+            lambda m, i, out: box.__setitem__("logits",
+                                              out[0].detach().clone()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, mem = [], {}
+        for i, s in enumerate(scans):
+            if i == 1:
+                torch.cuda.synchronize()
+                mem["before"] = _memory()
+            labels, probs = seg(s.points)
+            if i == 1:
+                torch.cuda.synchronize()
+                mem["after"] = _memory()
+            got.append((box.pop("logits"), labels.clone(), probs.clone()))
+        hook.remove()
+        counts = dict(seg.graph_counts)
+        same = all(all(torch.equal(a, b) for a, b in zip(g, eager(s.points)))
+                   for g, s in zip(got, scans))
+        pts = scans[-1].points
+        syncs = _sync_warnings(lambda: seg(pts))
+        _, x = net_input(pts)
+        launches = {"eager call": _launch_calls(lambda: eager(pts)),
+                    "eager network": _launch_calls(lambda: seg.logits(x)),
+                    "replayed call": _launch_calls(lambda: seg(pts))}
+        table = _segmenter_spans(lambda: seg(pts))
+        net_row = table["segmenter/network"]
+        ms = {"eager": _events_ms(lambda: eager(pts), 20, 2),
+              "replayed": _events_ms(lambda: seg(pts), 20, 2)}
+        gib = float(1 << 30)
+        print(f"[segmenter-graph] {segj['arch']} ({cell}, {n} scans at "
+              f"{cfg.height}x{cfg.width}): calls {counts}, eager by reason "
+              f"{dict(seg.invalidations)}; logits, labels and probabilities "
+              f"{'equal bit for bit' if same else 'DIFFER'} to the eager "
+              f"path's on every call; host syncs in a replayed call "
+              f"{len(syncs)}; capture {seg.capture_s * 1e3:.1f} ms (host)")
+        print(f"[segmenter-graph] {segj['arch']} launch calls: "
+              + ", ".join(f"{k} {v:.0f}" for k, v in launches.items())
+              + "; replayed spans (launches, busy ms): "
+              + ", ".join(f"{k} {v['launches']:.0f} {v['busy_ms']:.3f}"
+                          for k, v in sorted(table.items()))
+              + f"; ms a call (CUDA events, back-to-back): eager "
+              f"{ms['eager']:.3f}, replayed {ms['replayed']:.3f}")
+        print(f"[segmenter-graph] {segj['arch']} memory (GiB) before the "
+              f"capture / after: "
+              + ", ".join(f"{k} {mem['before'][k] / gib:.4f} / "
+                          f"{mem['after'][k] / gib:.4f}"
+                          for k in mem["before"]))
+        if not same:
+            raise AssertionError(f"segmenter-graph: {cell}'s replayed "
+                                 f"network differs from the eager one")
+        if counts.get("capture") != 1 or counts.get("replay", 0) < n - 2:
+            raise AssertionError(f"segmenter-graph: {cell}: calls {counts}")
+        if syncs:
+            raise AssertionError(f"segmenter-graph: {cell}: a replayed call "
+                                 f"waits for the device: {syncs[:3]}")
+        if not net_row["launches"] <= SEGMENTER_GRAPH_MAX_LAUNCHES:
+            raise AssertionError(f"segmenter-graph: {cell}: "
+                                 f"{net_row['launches']} launches in "
+                                 "segmenter/network")
+        del seg, hook, got
+
+
 def _knn_inputs(h, w, seed, dev):
     """Random class and depth images with forced depth ties, +-inf, NaN,
     two all-invalid rows (one the top edge) and ties across the wrap
@@ -4161,6 +4329,7 @@ def main() -> int:
     rec_a = timed("bilateral", phase_bilateral, dev, floors)
     recs_b = timed("zbuffer", phase_zbuffer, dev, floors)
     seg_image = timed("segmenter", phase_segmenter, dev)
+    timed("segmenter-graph", phase_segmenter_graph, dev)
     rec_c = timed("knn", phase_knn, dev, floors, seg_image)
     rec_d, rec_e, rec_f = timed("icp", phase_icp, dev, floors)
     timed("miou", phase_miou, dev)

@@ -42,6 +42,8 @@ the stage's shapes before (a first call makes one-time allocations, such as
 kernel B's key tables, that a capture cannot make), and the shapes and
 buffer addresses against those of the graph. The counters that the stages'
 Python bumps (kernel launches, ``gauss_newton`` calls) count once a replay.
+The segmenter's network (``models/segmenter.py``) is replayed by the same
+:func:`decide`, captured by :func:`capture` on the same stream.
 """
 
 from __future__ import annotations
@@ -107,6 +109,33 @@ def decide(*, device_type: str, grouped: bool, capturing: bool, seen: bool,
         return "eager", ("shape" if signature[0] != captured[0]
                          else "pointer")
     return "capture", None
+
+
+def capture(graph, pool, device, body):
+    """Capture ``body()`` into ``graph``, its memory from ``pool``, on
+    ``device``'s capture stream (:data:`_STREAMS`), which first waits for
+    the current stream, and the current stream for it after; returns what
+    ``body`` returned (tensors the replays write)."""
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+    cur = torch.cuda.current_stream(device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        # thread-local: a background thread's CUDA calls (the pose graph's
+        # solve) do not break the capture
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = body()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except Exception:  # the capture failed with the body
+                pass
+            raise
+        graph.capture_end()
+    cur.wait_stream(stream)
+    return out
 
 
 # -- the counters a stage's Python bumps ---------------------------------
@@ -363,34 +392,16 @@ class StepGraphs:
         the capture bumped are taken back: each replay adds them."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        stream = _STREAMS.get(self.device)
-        if stream is None:
-            stream = _STREAMS[self.device] = torch.cuda.Stream(self.device)
         buffers = tuple(torch.empty_like(t) for t in inputs)
         graph = torch.cuda.CUDAGraph()
         before = counter_values()
         t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(self.device)
-        stream.wait_stream(cur)
         try:
-            with torch.cuda.stream(stream):
-                # thread-local: a background thread's CUDA calls (the pose
-                # graph's solve) do not break the capture
-                graph.capture_begin(pool=self._pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    body(None, buffers)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except Exception:  # the capture failed with the body
-                        pass
-                    raise
-                graph.capture_end()
+            capture(graph, self._pool, self.device,
+                    lambda: body(None, buffers))
         finally:
             delta = counter_delta(before, counter_values())
             counter_add(delta, -1)
-        cur.wait_stream(stream)
         self.capture_s += time.perf_counter() - t0
         return _Graph(graph, sig, delta, buffers)
 
