@@ -1751,7 +1751,7 @@ def phase_step_graph(dev):
                                   st["creations-dropped"])
                                  for st in slam.statistics],
                           summary=None if name == "eager"
-                          else graphs.summary())
+                          else graphs.replayer.summary())
         print(f"[step-graph] {name}: {len(scans)} scans in {dt:.3f} s "
               f"(host clock, scans {a}-{b - 1} profiled); device operations "
               f"{ops:.1f} and launch calls {calls:.1f} a profiled scan, "
@@ -1761,7 +1761,8 @@ def phase_step_graph(dev):
               f"{slam.creations_dropped}, track losses "
               f"{slam.track_loss_count}")
         if name != "eager":
-            print(f"[step-graph] {name}: {json.dumps(graphs.summary())}")
+            print(f"[step-graph] {name}: "
+                  f"{json.dumps(graphs.replayer.summary())}")
         if name == "graphs again" and not kernel_f >= 1:
             raise AssertionError("step-graph: kernel F not among the "
                                  "profiled graph operations")
@@ -2952,7 +2953,8 @@ def phase_segmenter_graph(dev):
                 mem["after"] = _memory()
             got.append((box.pop("logits"), labels.clone(), probs.clone()))
         hook.remove()
-        counts = dict(seg.graph_counts)
+        rep = seg.replayer
+        counts = dict(rep.counts["segmenter"])
         same = all(all(torch.equal(a, b) for a, b in zip(g, eager(s.points)))
                    for g, s in zip(got, scans))
         pts = scans[-1].points
@@ -2968,10 +2970,10 @@ def phase_segmenter_graph(dev):
         gib = float(1 << 30)
         print(f"[segmenter-graph] {segj['arch']} ({cell}, {n} scans at "
               f"{cfg.height}x{cfg.width}): calls {counts}, eager by reason "
-              f"{dict(seg.invalidations)}; logits, labels and probabilities "
+              f"{dict(rep.invalidations)}; logits, labels and probabilities "
               f"{'equal bit for bit' if same else 'DIFFER'} to the eager "
               f"path's on every call; host syncs in a replayed call "
-              f"{len(syncs)}; capture {seg.capture_s * 1e3:.1f} ms (host)")
+              f"{len(syncs)}; capture {rep.capture_s * 1e3:.1f} ms (host)")
         print(f"[segmenter-graph] {segj['arch']} launch calls: "
               + ", ".join(f"{k} {v:.0f}" for k, v in launches.items())
               + "; replayed spans (launches, busy ms): "

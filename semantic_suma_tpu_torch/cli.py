@@ -315,10 +315,10 @@ def _drive(args, device, mesh=None):
     if graphs is not None:
         # the step's stages: captured, replayed and eager calls, and why
         # the eager ones did not replay
-        print(f"step graphs: {json.dumps(graphs.summary())}",
+        print(f"step graphs: {json.dumps(graphs.replayer.summary())}",
               file=sys.stderr)
         if evlog is not None:
-            evlog.log("step-graphs", **graphs.summary())
+            evlog.log("step-graphs", **graphs.replayer.summary())
     sw = getattr(slam, "stopwatch", None)
     if args.verbose and sw is not None:
         print(sw.report(), file=sys.stderr)

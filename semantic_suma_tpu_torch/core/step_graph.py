@@ -1,10 +1,10 @@
 """The odometry step's stages replayed as CUDA graphs (:class:`StepGraphs`).
 
 Enqueued from Python, one scan of :func:`pipeline.odometry_step` is about
-1,200 small launches, each costing the host more than the card takes to run
-it, so the host's enqueueing, not the card, sets the pace. Here each stage of
-the step is captured once into a CUDA graph and replayed on every later
-scan, one launch a stage:
+1,200 small launches, so the host's enqueueing, not the card, sets the pace.
+Here each stage of the step is captured once into a CUDA graph and replayed
+on every later scan, one launch a stage, by the session's
+:class:`graphs.Replayer` (which decides, captures and counts):
 
 * ``preprocess``: :func:`pipeline.preprocess_stage`;
 * ``gauss_newton``: :func:`pipeline.align_stage`, the stage up to the
@@ -34,31 +34,19 @@ then do not read: they are captured again. A finished session hands its
 graphs and buffers on to the next session of its configuration
 (:meth:`StepGraphs.for_session`), whose first state takes over the arena
 and the active view: a benchmark's or a batch's sessions capture once.
-
-:func:`decide` says, for each stage and scan, whether its graph replays, is
-captured, or the stage runs eagerly, from what it observes: the device, a
-sharding group, a capture already in progress, whether the process has run
-the stage's shapes before (a first call makes one-time allocations, such as
-kernel B's key tables, that a capture cannot make), and the shapes and
-buffer addresses against those of the graph. The counters that the stages'
-Python bumps (kernel launches, ``gauss_newton`` calls) count once a replay.
-The segmenter's network (``models/segmenter.py``) is replayed by the same
-:func:`decide`, captured by :func:`capture` on the same stream.
+The graphs' signature holds the buffers' addresses, and a first call is
+one of the buffers' layout.
 """
 
 from __future__ import annotations
 
-import time
 import weakref
-from collections import Counter
-from typing import NamedTuple
 
 import torch
 
 from ..config import SumaConfig
-from ..device import to_host
-from ..ops import bilateral, icp, knn, zbuffer
-from ..utils.timing import Stopwatch
+from ..graphs import Replayer
+from ..ops import icp
 from . import pipeline
 from .preprocessing import empty_maps
 
@@ -69,131 +57,6 @@ STAGES = ("preprocess", "gauss_newton", "fuse_render", "pack")
 # device): the next session of the configuration takes them, a session of
 # another drops them
 _SPARE: dict = {}
-
-# the stream each device's graphs are captured on: one for the process, so
-# that the libraries' per-stream state (cuBLAS's workspace) is made once
-_STREAMS: dict = {}
-
-# (device, stage, variant, input shapes, the buffers' layout) of the stage
-# calls this process has made eagerly: only those may be captured
-_SEEN: set = set()
-
-
-def decide(*, device_type: str, grouped: bool, capturing: bool, seen: bool,
-           signature, captured, last) -> tuple:
-    """``(action, reason)`` for one call of a stage: ``"replay"`` its graph,
-    ``"capture"`` one (and replay it), or ``"eager"``, with the reason the
-    graph does not run: ``"cpu"`` (no CUDA device), ``"group"`` (the
-    sharded step), ``"capturing"`` (the caller's stream is being captured
-    already), ``"first call"`` (the process has not run these shapes),
-    ``"shape"`` or ``"pointer"`` (the inputs' shapes, or the buffers'
-    addresses, differ from the graph's). ``signature`` is ``(shapes,
-    addresses)`` of this call, ``captured`` the graph's (None: no graph)
-    and ``last`` the previous call's: a signature that differs from the
-    graph's runs eagerly once and is captured when the next call repeats
-    it, so that inputs that change every call (KITTI scans of varying
-    length) never capture."""
-    if device_type != "cuda":
-        return "eager", "cpu"
-    if grouped:
-        return "eager", "group"
-    if capturing:
-        return "eager", "capturing"
-    if not seen:
-        return "eager", "first call"
-    if captured is None:
-        return "capture", None
-    if signature == captured:
-        return "replay", None
-    if signature != last:
-        return "eager", ("shape" if signature[0] != captured[0]
-                         else "pointer")
-    return "capture", None
-
-
-def capture(graph, pool, device, body):
-    """Capture ``body()`` into ``graph``, its memory from ``pool``, on
-    ``device``'s capture stream (:data:`_STREAMS`), which first waits for
-    the current stream, and the current stream for it after; returns what
-    ``body`` returned (tensors the replays write)."""
-    stream = _STREAMS.get(device)
-    if stream is None:
-        stream = _STREAMS[device] = torch.cuda.Stream(device)
-    cur = torch.cuda.current_stream(device)
-    stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        # thread-local: a background thread's CUDA calls (the pose graph's
-        # solve) do not break the capture
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            out = body()
-        except BaseException:
-            try:
-                graph.capture_end()
-            except Exception:  # the capture failed with the body
-                pass
-            raise
-        graph.capture_end()
-    cur.wait_stream(stream)
-    return out
-
-
-# -- the counters a stage's Python bumps ---------------------------------
-
-def _slots():
-    """``(name, owner, key)`` of every counter that the stages' code bumps:
-    an attribute of a function, or an entry of a dict."""
-    return [("bilateral_filter", bilateral.bilateral_filter, "launches"),
-            ("zbuffer_cells", zbuffer.zbuffer_cells, "launches"),
-            ("knn_clean_image", knn.knn_clean_image, "launches"),
-            ("icp_products", icp.icp_products, "launches"),
-            ("gn_update", icp.gn_update, "launches"),
-            ("gn_loop", icp.gn_loop, "launches"),
-            ("evaluate", icp.evaluate, "calls"),
-            ("gn_calls", icp.gn_counts, "calls"),
-            ("gn_iterations", icp.gn_counts, "iterations"),
-            ("build_rows", icp.plain_on_cuda, "build_rows"),
-            ("to_host", to_host, "count")]
-
-
-def _get(owner, key):
-    return owner[key] if isinstance(owner, dict) else getattr(owner, key)
-
-
-def _set(owner, key, value) -> None:
-    if isinstance(owner, dict):
-        owner[key] = value
-    else:
-        setattr(owner, key, value)
-
-
-def counter_values() -> dict:
-    """The counters' values by name; kernel B's launches by shape under
-    ``("zbuffer_cells_by_shape", shape)``."""
-    vals = {name: _get(owner, key) for name, owner, key in _slots()}
-    for shape, n in zbuffer.zbuffer_cells.launches_by_shape.items():
-        vals[("zbuffer_cells_by_shape", shape)] = n
-    return vals
-
-
-def counter_delta(before: dict, after: dict) -> dict:
-    """What changed from ``before`` to ``after``."""
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
-
-
-def counter_add(delta: dict, sign: int = 1) -> None:
-    """Add ``sign * delta`` to the counters, as they stand now (a caller
-    may have replaced an owner's dict or attribute since ``delta`` was
-    taken)."""
-    slots = {name: (owner, key) for name, owner, key in _slots()}
-    by_shape = zbuffer.zbuffer_cells.launches_by_shape
-    for name, d in delta.items():
-        if isinstance(name, tuple):
-            by_shape[name[1]] = by_shape.get(name[1], 0) + sign * d
-        else:
-            owner, key = slots[name]
-            _set(owner, key, _get(owner, key) + sign * d)
 
 
 # -- trees of tensors ----------------------------------------------------
@@ -249,39 +112,22 @@ def _keep(key, graphs) -> None:
     _SPARE[key] = graphs
 
 
-class _Graph(NamedTuple):
-    graph: object       # torch.cuda.CUDAGraph
-    signature: tuple
-    counts: dict        # the counters' increments of one run
-    inputs: tuple       # the input buffers it reads (preprocess)
-
-
 class StepGraphs:
     """CUDA graphs of one session's odometry step, with the buffers they
     read and write; the stages' methods have the signatures of the plain
     calls they replace (``pipeline._Eager``). On a CPU every call runs the
-    stage eagerly on the buffers (:func:`decide`'s ``"cpu"``).
+    stage eagerly on the buffers (``graphs.decide``'s ``"cpu"``).
 
-    ``counts[stage]`` counts the calls of each stage by what they did
-    (``capture``, ``replay``, ``eager``: a capture's call replays the new
-    graph once and counts as a capture), ``invalidations`` the eager calls
-    by :func:`decide`'s reason, and ``capture_s`` the host seconds of the
-    captures; with a ``stopwatch`` each call is also its lap
-    ``graph/<stage>/<action>``, an eager one ``graph/<stage>/eager/<reason>``
-    (the session's stopwatch: the CLI's ``--verbose`` and ``--stats-json``
-    report it)."""
+    ``replayer`` runs the stages, one slot a stage and variant, and counts
+    their calls for the session (``replayer.summary()``), each one also a
+    lap ``graph/<stage>/...`` on the session's stopwatch (the CLI's
+    ``--verbose`` and ``--stats-json`` report it)."""
 
     def __init__(self, cfg: SumaConfig, device):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.stopwatch: Stopwatch | None = None
         self.state: pipeline.SlamState | None = None
-        self.counts = {s: Counter() for s in STAGES}
-        self.invalidations: Counter = Counter()
-        self.capture_s = 0.0
-        self._graphs: dict = {}   # (stage, variant) -> _Graph
-        self._last: dict = {}     # (stage, variant) -> last call's signature
-        self._pool = None
+        self.replayer = Replayer(self.device, STAGES)
         self._conf_value = None
 
     @classmethod
@@ -299,10 +145,7 @@ class StepGraphs:
         _SPARE.clear()
         if graphs is None:
             graphs = cls(session.cfg, session.device)
-        graphs.stopwatch = session.stopwatch
-        graphs.counts = {s: Counter() for s in STAGES}
-        graphs.invalidations = Counter()
-        graphs.capture_s = 0.0
+        graphs.replayer.reset(session.stopwatch)
         done = weakref.finalize(session, _keep, key, graphs)
         done.atexit = False
         return graphs
@@ -342,83 +185,25 @@ class StepGraphs:
         self._layout_id = hash(_layout(buffers))
         return self.state
 
-    # -- one call of a stage ---------------------------------------------
-    def _run(self, stage: str, variant, body, stopwatch=None,
-             inputs: tuple = ()) -> None:
-        """Run ``body(stopwatch, inputs)`` (the stage, writing into the
-        buffers) as :func:`decide` says: eagerly on ``inputs``, or from a
-        graph that reads buffers of their shapes, into which they are
-        copied first."""
-        key = (stage, variant)
-        dev = self.device
-        shapes = _layout(inputs)
-        sig = (shapes, self._addresses)
-        first = (dev, stage, variant, shapes, self._layout_id)
-        graph = self._graphs.get(key)
-        action, why = decide(
-            device_type=dev.type, grouped=False,
-            capturing=(dev.type == "cuda"
-                       and torch.cuda.is_current_stream_capturing()),
-            seen=first in _SEEN, signature=sig,
-            captured=None if graph is None else graph.signature,
-            last=self._last.get(key))
-        self._last[key] = sig
-        t0 = time.perf_counter()
-        if action == "capture":
-            try:
-                graph = self._capture(body, sig, inputs)
-            except zbuffer.FirstCallUnderCapture:
-                action, why = "eager", "first call"
-            else:
-                self._graphs[key] = graph
-        if action == "eager":
-            body(stopwatch, inputs)
-            _SEEN.add(first)
-            self.invalidations[why] += 1
-        else:
-            _put(graph.inputs, inputs)
-            graph.graph.replay()
-            counter_add(graph.counts)
-        self.counts[stage][action] += 1
-        sw = self.stopwatch
-        if sw is not None:
-            label = f"graph/{stage}/{action}"
-            sw.record(label if why is None else f"{label}/{why}",
-                      time.perf_counter() - t0)
-
-    def _capture(self, body, sig, inputs) -> _Graph:
-        """Capture ``body`` on buffers like ``inputs`` into a graph of the
-        graphs' memory pool, on the device's capture stream. The counters
-        the capture bumped are taken back: each replay adds them."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        buffers = tuple(torch.empty_like(t) for t in inputs)
-        graph = torch.cuda.CUDAGraph()
-        before = counter_values()
-        t0 = time.perf_counter()
-        try:
-            capture(graph, self._pool, self.device,
-                    lambda: body(None, buffers))
-        finally:
-            delta = counter_delta(before, counter_values())
-            counter_add(delta, -1)
-        self.capture_s += time.perf_counter() - t0
-        return _Graph(graph, sig, delta, buffers)
-
     # -- the stages (pipeline._Eager's methods) ---------------------------
+    def _run(self, stage: str, body, inputs: tuple = (), **kw) -> None:
+        """One call of ``stage`` through the replayer: ``body`` writes into
+        the buffers, whose addresses the graphs' signature holds."""
+        self.replayer.run(stage, inputs, body, addresses=self._addresses,
+                          context=self._layout_id, **kw)
+
     def preprocess(self, state, points, labels, probs, point_valid, cfg):
         def body(sw, scan):
             _put(self._maps, pipeline.preprocess_stage(self.state, *scan,
                                                        cfg))
-        self._run("preprocess", None, body,
-                  inputs=(points, labels, probs, point_valid))
+        self._run("preprocess", body, (points, labels, probs, point_valid))
         return self._maps
 
     def align(self, state, data_maps, cfg) -> pipeline.Aligned:
         def body(sw, _):
             _put(self._aligned, pipeline.align_stage(self.state, self._maps,
                                                      cfg))
-        self._run("gauss_newton", None, body)
+        self._run("gauss_newton", body)
         return self._aligned
 
     def fuse(self, state, data_maps, new_pose, increment, refresh,
@@ -438,7 +223,7 @@ class StepGraphs:
                 self._conf, cfg, sw)
             _put(st, new_state)
             _put(self._created, (n_created, n_dropped))
-        self._run("fuse_render", refresh, body, stopwatch)
+        self._run("fuse_render", body, variant=refresh, stopwatch=stopwatch)
         return (st, *self._created)
 
     def pack(self, info: pipeline.StepInfo, block_count) -> torch.Tensor:
@@ -448,15 +233,5 @@ class StepGraphs:
 
         def body(sw, _):
             _put(self._packed, pipeline._pack_step_info(info, block_count))
-        self._run("pack", None, body)
+        self._run("pack", body)
         return self._packed
-
-    # -- the report ------------------------------------------------------
-    def summary(self) -> dict:
-        """The calls of each stage by what they did, the eager calls by
-        reason, and the captures' host milliseconds."""
-        return {"captures": {s: self.counts[s]["capture"] for s in STAGES},
-                "replays": {s: self.counts[s]["replay"] for s in STAGES},
-                "eager": {s: self.counts[s]["eager"] for s in STAGES},
-                "invalidations": dict(self.invalidations),
-                "capture_ms": self.capture_s * 1e3}

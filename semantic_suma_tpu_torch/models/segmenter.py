@@ -31,9 +31,7 @@ from __future__ import annotations
 import copy
 import math
 import pickle
-import time
 import weakref
-from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -41,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DataConfig
-from ..core import step_graph
 from ..device import resolve_device, to_host
+from ..graphs import Replayer
 from ..ops.knn import labels_for_points
 from ..ops.projection import project_scan
 from ..parallel.distributed import Group
@@ -238,13 +236,6 @@ def _inference_copy(model: Network, device: torch.device) -> Network:
     return net
 
 
-class _NetGraph(NamedTuple):
-    graph: object           # torch.cuda.CUDAGraph
-    signature: tuple
-    inputs: torch.Tensor    # the input buffer the graph reads
-    logits: torch.Tensor    # the logits buffer it writes
-
-
 class Segmenter:
     """Inference facade: scan points -> (raw labels, probabilities), both on
     the segmenter's device.
@@ -256,21 +247,16 @@ class Segmenter:
     outputs go straight into ``SurfelSLAM.process_scan_async``.
 
     On a card, a call (not :meth:`logits`) runs the network as one CUDA
-    graph: captured once per input shape, replayed on every later call (the
-    network's input is ``[1, H, W, 5]`` whatever the scan's point count),
-    one launch instead of one per layer. ``step_graph.decide`` chooses, as
-    for the odometry step's stages: eager on the CPU, under a capture of the
-    caller's, and on the first call of a shape; a capture on the next; then
-    replays. The replay copies the input into the graph's input buffer and
-    hands on its logits buffer, which the next call overwrites: only the
-    call, which votes on the logits before it returns, takes that path.
-    ``net`` stays the network module and its forward the way in, so a hook
-    on ``net`` sees the logits on every path. ``graph_counts`` counts the
-    calls by what they did (``capture``, ``replay``, ``eager``; a capture's
-    call replays the new graph once), ``invalidations`` the eager ones by
-    ``decide``'s reason, ``capture_s`` the captures' host seconds; each call
-    is also a lap ``graph/segmenter/<action>`` (an eager one's
-    ``graph/segmenter/eager/<reason>``) on ``stopwatch``.
+    graph through ``replayer`` (``graphs.Replayer``, as the odometry step's
+    stages run): the network's input is ``[1, H, W, 5]`` whatever the
+    scan's point count, so it is captured once and replayed, one launch
+    instead of one per layer. A replay hands on the graph's logits buffer,
+    which the next call overwrites: only the call, which votes on the
+    logits before it returns, takes that path. ``net`` stays the network
+    module and its forward the way in, so a hook on ``net`` sees the logits
+    on every path. ``replayer.counts["segmenter"]`` counts the calls by what
+    they did, ``replayer.invalidations`` the eager ones by reason, and each
+    call is a lap ``graph/segmenter/...`` on ``stopwatch``.
 
     ``model`` is either network (:data:`Network`; a small darknet where it
     is None); ``variables`` its weights as the weights file keeps them
@@ -294,17 +280,10 @@ class Segmenter:
         self.stopwatch = Stopwatch()
         if isinstance(self.net, SalsaNext):
             self.net.stopwatch = self.stopwatch
-        self.graph_counts: Counter = Counter()
-        self.invalidations: Counter = Counter()
-        self.capture_s = 0.0
-        self._graph: _NetGraph | None = None
-        self._last = None        # the previous graphed call's signature
-        self._pool = None
+        self.replayer = Replayer(self.device, ("segmenter",), self.stopwatch)
         self._graphed = False    # inside __call__'s network
-        # the network (by its spec) and the device: the part of
-        # step_graph._SEEN's key that is not the input's shape
-        self._seen_key = (self.device, "segmenter",
-                          tuple(sorted(network_spec(self.model).items())))
+        # a first call is one of the network (by its spec) at a shape
+        self._spec = tuple(sorted(network_spec(self.model).items()))
         # the forward on the instance, so that nn.Module.__call__ (and the
         # hooks on ``net``) wraps the graph's path too; weak references, so
         # that the network keeps neither itself nor its segmenter alive
@@ -325,56 +304,14 @@ class Segmenter:
         return self.net(images.to(self.device, torch.float32))
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``net``'s forward: eagerly, or inside :meth:`__call__` as
-        ``step_graph.decide`` says."""
+        """``net``'s forward: eagerly, or inside :meth:`__call__` through
+        the replayer."""
         plain = type(self.net).forward
         if not self._graphed:
             return plain(self.net, x)
-        dev = self.device
-        sig = (((tuple(x.shape), x.dtype),), ())   # (shapes, addresses)
-        seen = (*self._seen_key, sig[0])
-        graph = self._graph
-        action, why = step_graph.decide(
-            device_type=dev.type, grouped=False,
-            capturing=(dev.type == "cuda"
-                       and torch.cuda.is_current_stream_capturing()),
-            seen=seen in step_graph._SEEN, signature=sig,
-            captured=None if graph is None else graph.signature,
-            last=self._last)
-        self._last = sig
-        t0 = time.perf_counter()
-        if action == "eager":
-            out = plain(self.net, x)
-            step_graph._SEEN.add(seen)
-            self.invalidations[why] += 1
-        else:
-            if action == "capture":
-                graph = self._capture(x, sig)
-            graph.inputs.copy_(x)
-            graph.graph.replay()
-            out = graph.logits
-        self.graph_counts[action] += 1
-        label = f"graph/segmenter/{action}"
-        self.stopwatch.record(label if why is None else f"{label}/{why}",
-                              time.perf_counter() - t0)
-        return out
-
-    def _capture(self, x: torch.Tensor, sig) -> _NetGraph:
-        """The network's forward on an input buffer like ``x``, captured
-        into a graph of the segmenter's memory pool (the graph it replaces
-        dropped first)."""
-        self._graph = None
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        inputs = torch.empty_like(x)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        logits = step_graph.capture(
-            graph, self._pool, self.device,
-            lambda: type(self.net).forward(self.net, inputs))
-        self.capture_s += time.perf_counter() - t0
-        self._graph = _NetGraph(graph, sig, inputs, logits)
-        return self._graph
+        return self.replayer.run(
+            "segmenter", (x,), lambda sw, inputs: plain(self.net, *inputs),
+            context=self._spec)
 
     @torch.no_grad()
     def __call__(self, points, remissions=None):

@@ -20,6 +20,8 @@ themselves and against the JAX package's archives.
 * A capacity mismatch raises the JAX message; the loop blob's unpickler
   refuses a global that is neither a candidate, numpy nor a plain builtin.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import io
 import pickle

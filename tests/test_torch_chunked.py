@@ -22,6 +22,8 @@ scan's confidence threshold from ``SurfelSLAM``'s warmup schedule).
 * ``SurfelSLAM.syncs`` counts the host reads of every step of a chunk and
   one fetch a chunk.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch

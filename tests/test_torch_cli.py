@@ -26,6 +26,8 @@ configuration has it), 12 noise-free synthetic scans:
 * ``--segmenter-weights`` labels every scan with the network, on the
   synthetic world and on a KITTI directory with ``--no-gt-labels``.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import contextlib
 import io
 import json

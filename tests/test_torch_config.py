@@ -1,4 +1,6 @@
 """The port's configuration equals the JAX package's, field for field."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 from semantic_suma_tpu import config as jc

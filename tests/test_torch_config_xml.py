@@ -1,5 +1,7 @@
 """The port's XML loader and ``sweep`` against the JAX package's: every
 result equal field by field, exactly (``dataclasses.asdict``)."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 from pathlib import Path
 

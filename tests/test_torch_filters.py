@@ -2,6 +2,8 @@
 bilateral filter (the CPU side of the CUDA kernel) against the Pallas kernel in
 interpret mode at rtol = atol = 2e-5; normals, erosion and flood fill; and
 ``preprocess_scan`` with the bilateral filter on at ``small()``."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import numpy as np

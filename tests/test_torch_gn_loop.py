@@ -41,6 +41,8 @@ preprocessed by JAX, converted for the port.
   ``gn_result``, ``_blocks``): F's bit equality with D and E rests on them.
 * The pyramid's iteration total is a device tensor equal to JAX's.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import inspect
 import re

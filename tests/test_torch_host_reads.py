@@ -25,6 +25,8 @@ The masked block write under the refresh and ``sync`` (``_put_rows``) is
 held to boolean-mask indexing, and the flag read (``read_flags``) to one
 read that returns ``lie.orthonormalize`` of the pose to the bit.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax
 import numpy as np
 import pytest

@@ -1,6 +1,8 @@
 """The port's ICP against the JAX package on the same maps: Jacobian products
 (nearest and bilinear sampling; huber, turkey and no weighting) with integer
 statistics exactly equal, and the Gauss-Newton pose at atol 1e-5."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -8,6 +8,8 @@ segmenter loaded from a versioned weight file, a training run with its
 plots, checkpoint and viewer, and a ``run --resume`` of an archive that the
 JAX package wrote (with loop candidates, in a process where importing JAX
 fails) load none of them."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import ast
 import json
 import os
@@ -40,7 +42,7 @@ def test_import_loads_no_jax():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(sys.modules)))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True)
@@ -61,6 +63,49 @@ def test_sources_import_no_jax():
             else:
                 continue
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    assert bad == []
+
+
+def test_every_port_test_file_imports_the_thread_helper():
+    """Each ``tests/test_torch_*.py`` imports ``torch_env`` before anything
+    else: a port test file without it would run its worker on every core
+    again (``tests/torch_env.py``)."""
+    paths = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert paths
+    bad = []
+    for path in paths:
+        tree = ast.parse(path.read_text(), str(path))
+        first = next(n for n in tree.body
+                     if isinstance(n, (ast.Import, ast.ImportFrom)))
+        if not (isinstance(first, ast.Import)
+                and [a.name for a in first.names] == ["torch_env"]):
+            bad.append(path.name)
+    assert bad == []
+
+
+def test_models_import_nothing_from_core():
+    """The networks sit below the session: no module under ``models/``
+    imports from ``core/`` (what both need, such as the CUDA-graph
+    replayer, lives under the package root)."""
+    core = "semantic_suma_tpu_torch.core"
+    bad = []
+    for path in sorted((PKG / "models").rglob("*.py")):
+        package = ".".join(path.relative_to(ROOT).parts[:-1])
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = package.split(".")
+                if node.level:
+                    base = base[:len(base) - node.level + 1]
+                else:
+                    base = []
+                mod = ".".join(base + ([node.module] if node.module else []))
+                names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n == core or n.startswith(core + ".")]
     assert bad == []
 
 
@@ -108,7 +153,7 @@ def test_cli_run_loads_no_jax(tmp_path):
         f"{str(tmp_path / 'm.ply')!r}, '--save-cloud', "
         f"{str(tmp_path / 'c.ply')!r}] + {common!r}) == 0\n"
         "print(json.dumps(sorted(sys.modules)))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True)
@@ -150,7 +195,7 @@ def test_segmenter_loads_no_jax():
         "labels, probs = seg(s.points)\n"
         "assert labels.shape == probs.shape == s.points.shape[:1]\n"
         "print(json.dumps(sorted(sys.modules)))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True)
@@ -195,7 +240,7 @@ def test_train_checkpoint_and_viz_load_no_jax(tmp_path):
         f"{str(tmp_path / 'v.html')!r}, '--save-checkpoint', "
         f"{str(tmp_path / 'c.npz')!r}] + {common!r}) == 0\n"
         "print(json.dumps(sorted(sys.modules)))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True)
@@ -259,7 +304,7 @@ def test_resume_of_a_jax_archive_needs_no_jax(tmp_path):
         f"assert cli.main({argv!r}) == 0\n"
         "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
         "                        if v is not None)))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -338,7 +383,8 @@ def test_sharded_run_loads_no_jax(tmp_path):
         "from semantic_suma_tpu_torch import cli\n"
         f"assert cli.main({argv!r}) == 0\n"
         "print(json.dumps(sorted(sys.modules)))\n")
-    env = dict(os.environ, PYTHONPATH=f"{block}{os.pathsep}{ROOT}")
+    env = dict(os.environ, PYTHONPATH=f"{block}{os.pathsep}{ROOT}",
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -17,6 +17,8 @@ the JAX package's on the CPU.
   whose ``cli eval`` (with the calibration) gives ``run --eval``'s ATE
   within 1e-6 m.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import contextlib
 import io
 import json

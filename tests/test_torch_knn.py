@@ -11,6 +11,8 @@ package's (``models/rangenet.py``) on the CPU.
   1e-6 (two softmax implementations, float32).
 * On a CPU tensor the wrapper launches nothing and counts nothing.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,5 +1,7 @@
 """Port's SE(3)/SO(3) maps against the JAX package near theta=0 and theta=pi
 (atol 1e-5)."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import jax

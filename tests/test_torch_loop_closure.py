@@ -18,6 +18,8 @@
   loops and ends within 1.0 m of ground truth; a straight run closes none;
   ``finalize()`` on a zero-scan run returns.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 from collections import deque
 
 import jax

@@ -2,6 +2,8 @@
 with the per-length and per-speed tables, on seeded random and circular
 trajectories, equal within rtol 1e-12 (both are float64 numpy; NaNs where
 a trajectory is too short for a segment compare equal)."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import math
 
 import numpy as np

@@ -25,6 +25,8 @@ the port's single-device step.
   device r, with the data group its column and the model group its row; a
   width the model axis does not divide raises, naming the layer.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 

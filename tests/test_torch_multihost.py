@@ -5,6 +5,8 @@ their ``MULTIHOST OK`` line over a group of both processes, with chunks
 spilled to host RAM and paged back in on each, and the same map count and
 loss on both. The processes are joined with a deadline and killed on
 expiry."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import os
 import re
 import subprocess

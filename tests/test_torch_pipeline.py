@@ -21,6 +21,8 @@ bilateral filter on.
   JAX package's single-device rule would wait; its sharded rule is this
   one); a session with spill keeps the single-device rule.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

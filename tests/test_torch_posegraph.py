@@ -14,6 +14,8 @@
 * The port's counterparts of the nine cases of ``tests/test_posegraph.py``,
   and the converter ``convert.posegraph_from_jax``.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,8 @@ package on the CPU.
   simulator). On identical maps the two packages agree to 1e-7 m and in
   their 41 iterations.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

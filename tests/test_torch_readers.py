@@ -11,6 +11,8 @@ dataset is downloaded).
 * ``io/robocar.RobocarReader`` equals JAX's exactly on RobotCar ``.bin``
   files (three float64 a point).
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import os
 
 import numpy as np

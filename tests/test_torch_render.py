@@ -22,6 +22,8 @@ JAX package, from a JAX mid-run state at ``small()`` converted with
   ``render_index_map``: the same winners outside 0.5% of the pixels.
 * ``compose_views`` exact; ``update_poses`` at atol 1e-5 with exact integers.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,7 +10,9 @@ nest inside ``segmenter/network``; its FLOP count equals PyTorch's; two
 training steps move the loss; ``cli run --segmenter-weights`` labels scans
 with it. Seeded random weights throughout, on the CPU.
 
-CPU wall time: ~8 s on one worker, two threads."""
+CPU wall time: ~8 s on one worker."""
+
+import torch_env  # noqa: F401  (first: one torch thread)
 
 import json
 import pickle
@@ -33,16 +35,6 @@ from suma_bench import harness
 
 SEED = 2**31 + 21
 REF = harness.net("salsanext")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Tier-1's workers share the machine: two threads each while these
-    tests run, as the benchmark's own tests take."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _seg(height, width, base=32):

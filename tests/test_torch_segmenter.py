@@ -24,6 +24,8 @@ package's on the CPU.
   network: more than 100 labelled points on scan 0, ATE < 0.5 m
   (``tests/test_segmenter.py``'s driven run).
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,25 +1,27 @@
 """``Segmenter.__call__``'s network as a CUDA graph (``models/segmenter.py``),
 on the CPU.
 
-* On the CPU a call runs the network eagerly (``step_graph.decide``'s
+* On the CPU a call runs the network eagerly (``graphs.decide``'s
   ``"cpu"``) and gives exactly the labels and probabilities of the
   projection, the class's own forward and the vote run by hand.
 * A forward hook on ``Segmenter.net`` sees the ``[1, H, W, C]`` logits on
   every call.
 * ``Segmenter.logits`` gives a tensor of its own on every call.
 * The engagement counts add up to the calls, and each call is a lap.
-* The card's rule on an emulated graph (``decide`` told the device is a
-  card; the capture runs the body, a replay runs it again into the captured
-  logits): eager, capture, replays; a new shape eager once, then
+* The card's rule on an emulated graph (``torch_card``: ``decide`` told
+  the device is a card; the capture runs the body, a later replay runs it
+  again into the captured logits): eager, capture, replays; a new shape eager once, then
   captured; a shape run before eager once (``"shape"``), then captured;
   a hook sees the logits on every path, a replay hands on the graph's
   buffer, and every call's labels equal the eager ones.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import pytest
 import torch
+from torch_card import emulate_card
 
 from semantic_suma_tpu_torch.config import DataConfig
-from semantic_suma_tpu_torch.core import step_graph
 from semantic_suma_tpu_torch.models.rangenet import make_input, small_rangenet
 from semantic_suma_tpu_torch.models.salsanext import small_salsanext
 from semantic_suma_tpu_torch.models.segmenter import Segmenter
@@ -61,8 +63,8 @@ def test_cpu_call_is_eager_and_unchanged(seg):
         want_labels, want_probs = _by_hand(seg, pts)
         assert torch.equal(labels, want_labels)
         assert torch.equal(probs, want_probs)
-    assert seg.graph_counts == {"eager": 2}
-    assert seg.invalidations == {"cpu": 2}
+    assert seg.replayer.counts["segmenter"] == {"eager": 2}
+    assert seg.replayer.invalidations == {"cpu": 2}
     assert seg.stopwatch.stats["graph/segmenter/eager/cpu"].count == 2
 
 
@@ -88,7 +90,7 @@ def test_logits_results_are_distinct_tensors(seg):
     assert torch.equal(a, seg.logits(x))
     assert not torch.equal(a, b)
     # the network's own calls go around the graph's books
-    assert sum(seg.graph_counts.values()) == 0
+    assert sum(seg.replayer.counts["segmenter"].values()) == 0
 
 
 def test_engagement_counts_add_up_to_the_calls(seg):
@@ -96,37 +98,17 @@ def test_engagement_counts_add_up_to_the_calls(seg):
     for seed in range(n):
         seg(_points(seed))
     seg.logits(torch.zeros(1, CFG.height, CFG.width, 5))
-    counts = seg.graph_counts
+    counts = seg.replayer.counts["segmenter"]
     assert counts["capture"] + counts["replay"] + counts["eager"] == n
-    assert sum(seg.invalidations.values()) == counts["eager"]
+    assert sum(seg.replayer.invalidations.values()) == counts["eager"]
     laps = [k for k in seg.stopwatch.stats if k.startswith("graph/segmenter/")]
     assert sum(seg.stopwatch.stats[k].count for k in laps) == n
-    assert seg.capture_s == 0.0
-
-
-class _FakeGraph:
-    """A CUDA graph's part on the CPU: the capture keeps the body, a replay
-    runs it again into the captured output."""
-
-    def replay(self):
-        self.out.copy_(self.body())
-
-
-def _fake_capture(graph, pool, device, body):
-    graph.body = body
-    graph.out = body()
-    return graph.out
+    assert seg.replayer.capture_s == 0.0
 
 
 def test_card_rule_on_an_emulated_graph(seg, monkeypatch):
-    decide = step_graph.decide
-    monkeypatch.setattr(step_graph, "decide",
-                        lambda **kw: decide(**{**kw, "device_type": "cuda"}))
-    monkeypatch.setattr(step_graph, "capture", _fake_capture)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     # a process that has run this network at no shape yet
-    monkeypatch.setattr(step_graph, "_SEEN", set())
+    emulate_card(monkeypatch)
     wide = DataConfig(height=16, width=64)
     seen = []
     hook = seg.net.register_forward_hook(
@@ -142,8 +124,9 @@ def test_card_rule_on_an_emulated_graph(seg, monkeypatch):
         assert torch.equal(probs, want_probs)
     hook.remove()
     laps = [k for k in seg.stopwatch.stats if k.startswith("graph/")]
-    assert seg.graph_counts == {"eager": 3, "capture": 3, "replay": 3}
-    assert seg.invalidations == {"first call": 2, "shape": 1}
+    assert seg.replayer.counts["segmenter"] == {"eager": 3, "capture": 3,
+                                                "replay": 3}
+    assert seg.replayer.invalidations == {"first call": 2, "shape": 1}
     assert sorted(laps) == ["graph/segmenter/capture",
                             "graph/segmenter/eager/first call",
                             "graph/segmenter/eager/shape",

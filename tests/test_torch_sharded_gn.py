@@ -22,6 +22,8 @@ Inputs: ``test_torch_gn_loop.py``'s two scans of the JAX simulator at
   residual within 1e-5 relative (the port sums the rows' float32 terms in
   another order), device tensors, no host read.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

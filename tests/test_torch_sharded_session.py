@@ -30,6 +30,8 @@ All but the loop closure read the two-rank suite and the JAX
   shard leaf equal; a mesh of another size refuses an archive with JAX's
   message.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax
 import numpy as np
 import pytest

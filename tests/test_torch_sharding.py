@@ -17,6 +17,8 @@ one JAX ``make_mesh(2)`` session, shared with
   against the single-device port within JAX's 0.1 m over 6 scans, both
   ranks with the same trajectory.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import numpy as np

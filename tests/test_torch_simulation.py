@@ -1,5 +1,7 @@
 """The port's raycaster against the JAX one: points at atol 1e-4, labels and
 valid flags exactly."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 import torch

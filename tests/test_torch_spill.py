@@ -26,6 +26,8 @@ the CPU.
   spill, the page-in, the closures, the dropped creations (1%) and the
   final error, and at most one scan that drops.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax
@@ -348,19 +350,12 @@ def test_loop_closes_after_forced_spill():
                               device="cpu")
     slam = SurfelSLAM(cfg, device="cpu")
     max_spilled, first_spill = 0, None
-    # one thread: the float order, and with it which scan pays the drop,
-    # does not depend on the machine's cores or on the other test workers
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for i in range(n):
-            s = reader.read(i)
-            slam.process_scan(s.points, s.labels, s.probs, s.valid)
-            if slam.spill.spilled_rows and first_spill is None:
-                first_spill = i
-            max_spilled = max(max_spilled, slam.spill.spilled_rows)
-    finally:
-        torch.set_num_threads(threads)
+    for i in range(n):
+        s = reader.read(i)
+        slam.process_scan(s.points, s.labels, s.probs, s.valid)
+        if slam.spill.spilled_rows and first_spill is None:
+            first_spill = i
+        max_spilled = max(max_spilled, slam.spill.spilled_rows)
     assert max_spilled > 0 and first_spill < 45, (max_spilled, first_spill)
     assert slam.spill.chunks_paged_in >= 1
     created = sum(st["surfels-created"] for st in slam.statistics)

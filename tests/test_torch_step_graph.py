@@ -7,14 +7,10 @@ on the CPU at ``SumaConfig().small()`` (spill and loop closure off).
   state: the plain ``odometry_step_fetch``, the stages on the graphs'
   buffers run eagerly (what the CPU does), and the same with every call
   after a stage's first "captured" and "replayed" by a stand-in graph that
-  reruns the stage on its buffers (the scan copied into the graph's input
-  buffers, the confidence threshold read from its device float, the
-  track-loss flag from the device's jump flag). Packed rows and every
-  field of the state are equal bit for bit on every scan.
-* ``step_graph.decide`` as a function of what it observes: eager for a
-  CPU, a sharding group, a capture in progress, a first call, a new shape
-  and a moved buffer; a capture where the signature held since the last
-  call or no graph exists; a replay where it is the graph's.
+  reruns the stage on its buffers (``torch_card``: the scan copied into
+  the graph's input buffers, the confidence threshold read from its device
+  float, the track-loss flag from the device's jump flag). Packed rows and
+  every field of the state are equal bit for bit on every scan.
 * The engagement counters add up: captures + replays + eager calls = the
   stage's calls, the eager calls = the invalidations by reason. The launch
   counters a capture bumped are taken back and each replay adds them.
@@ -25,11 +21,15 @@ on the CPU at ``SumaConfig().small()`` (spill and loop closure off).
 
 CPU wall time: ~10 s on one worker."""
 
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import gc
 
 import pytest
 import torch
+from torch_card import emulate_card
 
+from semantic_suma_tpu_torch import graphs as gr
 from semantic_suma_tpu_torch.config import (LoopClosureConfig, MapConfig,
                                             SumaConfig)
 from semantic_suma_tpu_torch.core import pipeline as tp
@@ -56,35 +56,6 @@ def scans():
     return [render_scan(world, p, cfg.data) for p in poses]
 
 
-class _StandIn:
-    """A "graph" that reruns the captured stage on its buffers; the Python
-    counters the rerun bumps are taken back, as a replay runs no Python."""
-
-    def __init__(self, body, buffers):
-        self.body, self.buffers = body, buffers
-
-    def replay(self):
-        before = sg.counter_values()
-        self.body(None, self.buffers)
-        sg.counter_add(sg.counter_delta(before, sg.counter_values()), -1)
-
-
-def _stand_in_graphs(monkeypatch):
-    """Make ``StepGraphs`` decide as on a card and capture stand-ins."""
-    decide = sg.decide
-
-    def as_on_a_card(**kw):
-        return decide(**{**kw, "device_type": "cuda"})
-
-    def capture(self, body, sig, inputs):
-        buffers = tuple(torch.empty_like(t) for t in inputs)
-        return sg._Graph(_StandIn(body, buffers), sig, {}, buffers)
-
-    monkeypatch.setattr(sg, "decide", as_on_a_card)
-    monkeypatch.setattr(sg.StepGraphs, "_capture", capture)
-    monkeypatch.setattr(sg, "_SEEN", set())
-
-
 def _wild(state):
     inc = state.last_increment.clone()
     inc[0, 3] += WILD_M
@@ -95,7 +66,7 @@ def _wild(state):
 def test_stages_on_buffers_equal_the_plain_step(monkeypatch, scans, mode):
     cfg = _cfg()
     if mode == "replayed":
-        _stand_in_graphs(monkeypatch)
+        emulate_card(monkeypatch)
     conf = tp.SurfelSLAM(cfg, device="cpu")._conf_at
     graphs = sg.StepGraphs(cfg, "cpu")
     plain = tp.init_state(cfg, "cpu")
@@ -111,7 +82,7 @@ def test_stages_on_buffers_equal_the_plain_step(monkeypatch, scans, mode):
         assert torch.equal(got, want), i
         for a, b in zip(sg._leaves(held), sg._leaves(plain), strict=True):
             assert torch.equal(a, b), i
-        refreshes.update(v for (stage, v) in graphs._last
+        refreshes.update(v for (stage, v) in graphs.replayer._last
                          if stage == "fuse_render")
         losses += int(want[45] > 0)
     # the sequence went through the warm-up, refreshed and did not, and
@@ -119,7 +90,7 @@ def test_stages_on_buffers_equal_the_plain_step(monkeypatch, scans, mode):
     assert conf(N_SCANS - 1) == cfg.map.confidence_threshold != conf(0)
     assert refreshes == {True, False}
     assert losses >= 1
-    s = graphs.summary()
+    s = graphs.replayer.summary()
     if mode == "eager":
         assert s["eager"] == dict.fromkeys(sg.STAGES, N_SCANS)
         assert s["invalidations"] == {"cpu": 4 * N_SCANS}
@@ -134,40 +105,19 @@ def test_stages_on_buffers_equal_the_plain_step(monkeypatch, scans, mode):
         assert s["invalidations"] == {"first call": 5}
 
 
-@pytest.mark.parametrize("case, kw, want", [
-    ("cpu", dict(device_type="cpu"), ("eager", "cpu")),
-    ("group", dict(grouped=True), ("eager", "group")),
-    ("capturing", dict(capturing=True), ("eager", "capturing")),
-    ("first call", dict(seen=False), ("eager", "first call")),
-    ("new shape", dict(signature=((2,), (1,)), last=((1,), (1,))),
-     ("eager", "shape")),
-    ("moved pointer", dict(signature=((1,), (2,)), last=((1,), (1,))),
-     ("eager", "pointer")),
-    ("held since the last call", dict(signature=((1,), (2,)),
-                                      last=((1,), (2,))), ("capture", None)),
-    ("no graph yet", dict(captured=None), ("capture", None)),
-    ("the graph's", dict(), ("replay", None)),
-])
-def test_decide_follows_what_it_observes(case, kw, want):
-    obs = dict(device_type="cuda", grouped=False, capturing=False, seen=True,
-               signature=((1,), (1,)), captured=((1,), (1,)),
-               last=((1,), (1,)))
-    assert sg.decide(**{**obs, **kw}) == want, case
-
-
 def test_engagement_and_launch_counters_add_up(monkeypatch, scans):
     cfg = _cfg()
-    _stand_in_graphs(monkeypatch)
+    emulate_card(monkeypatch)
     graphs = sg.StepGraphs(cfg, "cpu")
     state = tp.init_state(cfg, "cpu")
     n = 6
     for i, s in enumerate(scans[:n]):
         state, _ = tp.odometry_step_fetch(state, s.points, s.labels, s.probs,
                                           s.valid, 0.0, cfg, graphs=graphs)
-    s = graphs.summary()
+    s = graphs.replayer.summary()
     for st in sg.STAGES:
         assert (s["captures"][st] + s["replays"][st] + s["eager"][st]
-                == sum(graphs.counts[st].values()) == n)
+                == sum(graphs.replayer.counts[st].values()) == n)
     assert sum(s["eager"].values()) == sum(s["invalidations"].values())
 
     # a graph's counters: a capture's increments are taken back, and each
@@ -175,19 +125,19 @@ def test_engagement_and_launch_counters_add_up(monkeypatch, scans):
     monkeypatch.setattr(icp.gn_loop, "launches", 5)
     monkeypatch.setattr(zbuffer.zbuffer_cells, "launches_by_shape",
                         {(7, 2): 1})
-    before = sg.counter_values()
+    before = gr.counter_values()
     icp.gn_loop.launches += 1
     zbuffer.zbuffer_cells.launches_by_shape[(7, 2)] += 2
     zbuffer.zbuffer_cells.launches_by_shape[(3, 0)] = 1
-    delta = sg.counter_delta(before, sg.counter_values())
+    delta = gr.counter_delta(before, gr.counter_values())
     assert delta == {"gn_loop": 1, ("zbuffer_cells_by_shape", (7, 2)): 2,
                      ("zbuffer_cells_by_shape", (3, 0)): 1}
-    sg.counter_add(delta, -1)
-    assert sg.counter_values() == {**before,
+    gr.counter_add(delta, -1)
+    assert gr.counter_values() == {**before,
                                    ("zbuffer_cells_by_shape", (3, 0)): 0}
     zbuffer.zbuffer_cells.launches_by_shape = {}
     for _ in range(3):
-        sg.counter_add(delta)
+        gr.counter_add(delta)
     assert icp.gn_loop.launches == 8
     assert zbuffer.zbuffer_cells.launches_by_shape == {(7, 2): 6, (3, 0): 3}
 

@@ -2,6 +2,8 @@
 changes no pose and counts the iterations ``SurfelSLAM`` reports, the recorder
 puts back the functions it wrapped, and the period and stopping-test helpers
 on made-up traces."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import torch
 

@@ -19,6 +19,8 @@
 
 CPU wall time: ~25 s on one worker."""
 
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import gc
 import json
 

@@ -39,6 +39,8 @@ and ``cli train-segmenter``) against the JAX package on the CPU.
   line, the exit code of the 0.5 rule, a blob both packages load; a dataset
   without labels exits 1 with the JAX message.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import json
 
 import flax.linen as fnn

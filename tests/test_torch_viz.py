@@ -13,6 +13,8 @@ JAX package's on the CPU.
   compared; its PNG writer round-trips an image exactly through
   matplotlib's reader.
 """
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import base64
 import os
 import re

@@ -2,6 +2,8 @@
 formulation: winners exactly equal, on random inputs with forced depth ties,
 invalid ids and depths beyond the bound, in both the packed-key and the exact
 two-key branch; and ``project_scan`` maps (integers exact, floats 1e-6)."""
+import torch_env  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
