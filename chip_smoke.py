@@ -101,6 +101,14 @@ and the exit code is non-zero:
      host sync in a replayed call, at most 4 launches in its network span;
      launches, capture ms, ms a call and memory before and after the
      capture printed;
+     ``[segmenter-epilogue]``: darknet53's batch-norm epilogue
+     (``csrc/bn_act.cu``) at 64x2048 on a scan of its cell: each of a
+     forward's 72 calls equal to its plain version on its own inputs, the
+     walk's logits and labels equal to the module forwards' bit for bit,
+     eager and replayed, 72 launches a forward and none for SalsaNext;
+     each site shape's kernel ms beside its bytes bound and the plain
+     version's ms, and the ``segmenter/network`` busy ms with the module
+     forwards and with the walk;
  14. kernel C (KNN label vote) against its plain version at 64x900 on two
      random inputs (forced depth ties, +-inf, NaN, all-invalid rows, ties
      across the wrap seam), an input of runs of equal range differences
@@ -224,7 +232,9 @@ counts back: the sum and each rank's are printed), with the calls of
 paths to one launch of F a ``gauss_newton`` or ``evaluate`` call and
 none of D and E. It prints the card's name and power limit, one
 ``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
-shape that a path launched and for kernels C, D, E and F (``launches`` is
+shape that a path launched, for kernel C, the epilogue (``bn_act``, its
+``ms``, ``bound_ms`` and ``plain_ms`` those of a darknet53 forward's calls
+in phase 13) and kernels D, E and F (``launches`` is
 the sum over the paths, ``launches_by_path`` the parts; what no path
 launches, a KITTI scan's projection (phase 3) and the two-stream render
 (phases 3 and 8), are listed in a ``{"held_off_path": [...]}`` line with 0
@@ -2082,6 +2092,7 @@ _GN_CALLS_AT_ZERO = [0]
 
 def _zero_launch_counts():
     from semantic_suma_tpu_torch.ops.bilateral import bilateral_filter
+    from semantic_suma_tpu_torch.ops.epilogue import bn_act
     from semantic_suma_tpu_torch.ops.icp import (evaluate, gn_counts, gn_loop,
                                                  gn_update, icp_products,
                                                  plain_on_cuda)
@@ -2091,6 +2102,7 @@ def _zero_launch_counts():
     zbuffer_cells.launches = 0
     zbuffer_cells.launches_by_shape = {}
     knn_clean_image.launches = 0
+    bn_act.launches = 0
     icp_products.launches = 0
     gn_update.launches = 0
     gn_loop.launches = 0
@@ -3001,6 +3013,237 @@ def phase_segmenter_graph(dev):
         del seg, hook, got
 
 
+# [segmenter-epilogue]: the darknet53 cell and the SalsaNext cell, the
+# epilogue calls of a darknet53 forward, and the card's bytes a second
+EPILOGUE_CELL = "sumapp-rangenet53-offline"
+EPILOGUE_SALSA_CELL = "sumapp-salsanext-offline"
+EPILOGUE_SITES = 72
+# the epilogue calls of a forward of the mid network (the phases' segmenter)
+MID_SITES = 40
+
+
+def _module_logits(net, x):
+    """The darknet network's logits by its encoder's and decoder's module
+    forwards (no epilogue call; the path of training), at a width that
+    needs no wrap pad."""
+    xp = x.permute(0, 3, 1, 2)
+    feats, skips = net.Encoder_0(xp)
+    return net.Conv_0(net.Decoder_0(feats, skips).float()).permute(0, 2, 3, 1)
+
+
+def _epilogue_sites(net, x) -> list:
+    """``(args, kwargs)`` of every epilogue call of one eager walk of
+    ``net`` on ``x``, in order."""
+    from semantic_suma_tpu_torch.models import rangenet
+    sites, real = [], rangenet.bn_act
+
+    def record(*a, **kw):
+        sites.append((a, kw))
+        return real(*a, **kw)
+
+    rangenet.bn_act = record
+    try:
+        net(x)
+    finally:
+        rangenet.bn_act = real
+    return sites
+
+
+def _site_key(a, kw) -> tuple:
+    y, r = a[0], (a[4] if len(a) > 4 else None)
+    return (tuple(y.shape), r is not None, kw["f32"], kw["bf16"])
+
+
+def _site_bytes(key) -> int:
+    shape, has_r, f32, bf16 = key
+    n = int(np.prod(shape))
+    return n * (2 + 4 * has_r + 4 * f32 + 2 * bf16)
+
+
+def phase_segmenter_epilogue(dev):
+    """``[segmenter-epilogue]``: the batch-norm epilogue (``csrc/bn_act.cu``)
+    in darknet53's walk, with ``weights/segmenter_synth_full.pkl`` at
+    64x2048 on a scan of its cell. Held: each of a forward's
+    ``EPILOGUE_SITES`` calls equal bit for bit to its plain version on the
+    card (the ATen operations of the modules) on the call's real inputs;
+    the eager walk's logits and labels equal to those of the encoder's and
+    decoder's module forwards; the replayed graph's logits equal to the
+    eager walk's; ``EPILOGUE_SITES`` launches a darknet53 forward, eager and
+    replayed, and none a SalsaNext one. Printed: each site shape's kernel
+    time in a replayed graph beside its bytes bound and the plain version's
+    time, and the ``segmenter/network`` span's busy ms a call with the
+    module forwards and with the walk, both replayed, on one seed. Returns
+    the kernel's record of the ``kernels`` line: ``ms``, ``bound_ms`` and
+    ``plain_ms`` summed over a forward's calls."""
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.models.rangenet import make_input
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    from semantic_suma_tpu_torch.ops import epilogue
+    from semantic_suma_tpu_torch.ops.knn import labels_for_points
+    from semantic_suma_tpu_torch.ops.projection import project_scan
+    from suma_bench import harness
+
+    def load(cell):
+        segj = harness.cell(cell)["config"]["segmenter"]
+        cfg = DataConfig(**segj["data"])
+        _, _, scans = _cell_sequence(dev, cell, 7)
+        seg = Segmenter.load(str(harness.ROOT / segj["weights"]), cfg,
+                             use_knn=segj["use_knn"], device=dev)
+        return seg, cfg, scans[:SEGMENTER_GRAPH_SCANS]
+
+    def net_input(cfg, pts):
+        res = project_scan(pts, remissions=torch.zeros_like(pts[:, 0]),
+                           cfg=cfg)
+        return res, make_input(res.vertex_map, res.depth_map, res.remission,
+                               res.vertex_valid)[None]
+
+    def labels(seg, res, pts, logits):
+        depth = torch.linalg.vector_norm(pts, dim=-1)
+        return labels_for_points(
+            logits, res.point_px.clamp_min(0), res.point_py.clamp_min(0),
+            depth, res.point_px >= 0, res.depth_map, use_knn=seg.use_knn)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg, cfg, scans = load(EPILOGUE_CELL)
+    net = seg.net
+    pts = scans[0].points
+    res, x = net_input(cfg, pts)
+    fn = epilogue.bn_act
+    with torch.no_grad():
+        # each call against its plain version (the modules' ATen
+        # operations) on the call's own inputs, element by element
+        sites = _epilogue_sites(net, x)
+        unequal, err = 0, 0.0
+        for a, kw in sites:
+            for g, w in zip(fn(*a, **kw), epilogue.bn_act_plain(*a, **kw)):
+                if g is not None:
+                    bits = torch.int16 if g.dtype == torch.bfloat16 \
+                        else torch.int32
+                    unequal += int((g.view(bits) != w.view(bits)).sum())
+                    err = max(err, float((g.float() - w.float()).abs().max()))
+        print(f"[segmenter-epilogue] elements unequal to the plain version "
+              f"over the {len(sites)} calls of a forward: {unequal} (largest "
+              f"difference {err:.3e})")
+        layouts = sorted({(str(a[0].dtype), a[0].is_contiguous(
+            memory_format=torch.channels_last)) for a, _ in sites})
+        n0 = fn.launches
+        walk = seg.logits(x)[0]
+        n_eager = fn.launches - n0
+        mods = _module_logits(net, x)[0]
+        same = torch.equal(walk, mods)
+        gap = float((walk - mods).abs().max())
+        same_labels = all(torch.equal(a, b) for a, b in zip(
+            labels(seg, res, pts, walk), labels(seg, res, pts, mods)))
+    print(f"[segmenter-epilogue] darknet53 ({EPILOGUE_CELL}, "
+          f"{cfg.height}x{cfg.width}): eager walk vs module forwards: logits "
+          f"{'equal bit for bit' if same else 'DIFFER'} (largest "
+          f"difference {gap:.3e}), labels and probabilities "
+          f"{'equal' if same_labels else 'DIFFER'}; {n_eager} epilogue "
+          f"launches a forward; convolution outputs (dtype, channels_last) "
+          f"{layouts}")
+
+    # the replayed graph against the eager walk
+    box = {}
+    hook = net.register_forward_hook(
+        lambda m, i, out: box.__setitem__("logits", out[0].detach().clone()))
+    replay_same, n_calls = True, []
+    for s in scans:
+        n0 = fn.launches
+        seg(s.points)
+        n_calls.append(fn.launches - n0)
+        _, xs = net_input(cfg, s.points)
+        with torch.no_grad():
+            replay_same &= torch.equal(box.pop("logits"), seg.logits(xs)[0])
+    hook.remove()
+    counts = dict(seg.replayer.counts["segmenter"])
+    print(f"[segmenter-epilogue] darknet53 through Segmenter.__call__ on "
+          f"{len(scans)} scans: calls {counts}; logits "
+          f"{'equal bit for bit' if replay_same else 'DIFFER'} to the eager "
+          f"walk's on every call; epilogue launches a call {n_calls}")
+
+    # each site shape: the kernel in a replayed graph, its bytes bound and
+    # the plain version (ATen on the card)
+    by_key: dict = {}
+    for a, kw in sites:
+        by_key.setdefault(_site_key(a, kw), [a, kw, 0])[2] += 1
+    tot = {"kernel": 0.0, "bound": 0.0, "plain": 0.0, "bytes": 0}
+    with torch.no_grad():
+        for key, (a, kw, count) in by_key.items():
+            k_ms = min(graph_ms(lambda: fn(*a, **kw), 50) for _ in range(2))
+            p_ms = graph_ms(lambda: epilogue.bn_act_plain(*a, **kw), 20)
+            nbytes = _site_bytes(key)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            for k, v in (("kernel", k_ms), ("bound", b_ms), ("plain", p_ms),
+                         ("bytes", nbytes)):
+                tot[k] += v * count
+            shape, has_r, f32, bf16 = key
+            print(f"[segmenter-epilogue] site {list(shape)} r={int(has_r)} "
+                  f"out f32={int(f32)} bf16={int(bf16)} x{count}: kernel "
+                  f"{k_ms:.5f} ms, bytes bound {b_ms:.5f} ms "
+                  f"({nbytes} B), plain {p_ms:.5f} ms")
+    print(f"[segmenter-epilogue] a forward's {len(sites)} calls: kernel "
+          f"{tot['kernel']:.4f} ms, bytes bound {tot['bound']:.4f} ms "
+          f"({tot['bytes'] / 1e9:.3f} GB, "
+          f"{100 * tot['bound'] / tot['kernel']:.1f}% of the roofline), "
+          f"plain {tot['plain']:.4f} ms")
+
+    # segmenter/network busy ms: the module forwards (as before the walk)
+    # against the walk, each replayed, on one seed
+    busy = {}
+    for name in ("modules", "walk"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        s2, _, _ = load(EPILOGUE_CELL)
+        if name == "modules":
+            n2 = s2.net
+            n2._walk = lambda xx, n2=n2: n2.Decoder_0(*n2.Encoder_0(xx))
+        for s in scans[:4]:
+            s2(s.points)
+        table = _segmenter_spans(lambda: s2(pts))
+        ms = _events_ms(lambda: s2(pts), 20, 2)
+        busy[name] = (table["segmenter/network"]["busy_ms"],
+                      table["segmenter/network"]["launches"], ms)
+        del s2
+    print("[segmenter-epilogue] segmenter/network replayed (busy ms, "
+          "launches) and a whole call's ms (CUDA events, back-to-back): "
+          + "; ".join(f"{k} {v[0]:.4f} ms, {v[1]:.0f}, {v[2]:.3f} ms"
+                      for k, v in busy.items()))
+
+    # SalsaNext calls no epilogue
+    del seg, net, sites, by_key
+    gc.collect()
+    torch.cuda.empty_cache()
+    salsa, scfg, sscans = load(EPILOGUE_SALSA_CELL)
+    n0 = fn.launches
+    for s in sscans[:3]:
+        salsa(s.points)
+    n_salsa = fn.launches - n0
+    print(f"[segmenter-epilogue] SalsaNext ({EPILOGUE_SALSA_CELL}): "
+          f"{n_salsa} epilogue launches over 3 calls")
+    print(f"[segmenter-epilogue] {_smi('name,power.limit')}")
+    if not (same and replay_same and same_labels):
+        raise AssertionError("segmenter-epilogue: the walk's logits differ "
+                             "from the module forwards'")
+    if n_eager != EPILOGUE_SITES or any(n != EPILOGUE_SITES for n in n_calls):
+        raise AssertionError(f"segmenter-epilogue: {n_eager}, {n_calls} "
+                             f"launches, not {EPILOGUE_SITES}")
+    if n_salsa:
+        raise AssertionError("segmenter-epilogue: SalsaNext launched the "
+                             "epilogue")
+    if unequal:
+        raise AssertionError(f"segmenter-epilogue: {unequal} elements "
+                             "unequal to the plain version")
+    return {"name": "bn_act", "route": "cuda",
+            "shape": f"darknet53 {cfg.height}x{cfg.width}, "
+                     f"{n_eager} calls",
+            "source": "semantic_suma_tpu_torch/csrc/bn_act.cu",
+            "replaces": "none (flax BatchNorm and leaky_relu, left to XLA)",
+            "max_abs_err": err, "ms": tot["kernel"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "bound_by": "bytes",
+            "library_ms": None}
+
+
 def _knn_inputs(h, w, seed, dev):
     """Random class and depth images with forced depth ties, +-inf, NaN,
     two all-invalid rows (one the top edge) and ties across the wrap
@@ -3174,7 +3417,8 @@ def phase_segmenter_loop(dev):
     the bench configuration (2^21-row arena, 2^18-row view, two-image fresh
     region, unfiltered, loop closure off), 8 warm-up + 60 timed scans of
     the main path's world, scans/s on the host clock. Launch counters are
-    zeroed just before the drive and read just after."""
+    zeroed just before the drive and read just after: one of kernel C and
+    ``MID_SITES`` of the epilogue a scan."""
     from semantic_suma_tpu_torch.config import MapConfig, SumaConfig
     from semantic_suma_tpu_torch.core.pipeline import SurfelSLAM
     from semantic_suma_tpu_torch.io.simulation import (circular_trajectory,
@@ -3218,12 +3462,15 @@ def phase_segmenter_loop(dev):
           f"{dt / n_timed * 1e3:.2f} ms/scan (host clock); aligned ATE "
           f"{ate:.5f} m, map surfels {slam.statistics[-1]['map-count']}, "
           f"dropped creations {slam.creations_dropped}; launches: kernel C "
-          f"{counts['knn_clean_image']}, kernel B by (candidates, flags) "
+          f"{counts['knn_clean_image']}, the epilogue {counts['bn_act']}, "
+          f"kernel B by (candidates, flags) "
           f"{sorted(counts['zbuffer_cells_by_shape'].items())}")
     proj = counts["zbuffer_cells_by_shape"].get((64 * 900, 0), 0)
-    if counts["knn_clean_image"] != n or proj != 2 * n:
+    if counts["knn_clean_image"] != n or proj != 2 * n \
+            or counts["bn_act"] != MID_SITES * n:
         raise AssertionError(f"segmenter loop: kernel C ran "
-                             f"{counts['knn_clean_image']} times and the "
+                             f"{counts['knn_clean_image']} times, the "
+                             f"epilogue {counts['bn_act']} and the "
                              f"projection {proj} times over {n} scans")
     if slam.creations_dropped:
         raise AssertionError(f"segmenter loop: {slam.creations_dropped} "
@@ -3236,7 +3483,7 @@ def phase_cli_kitti_segmenter(dev):
     the segmenter's world (30% cars, 1 m steps) and ``cli run --dataset ...
     --segmenter-weights <mid> --no-gt-labels --eval``; one vote a scan, ATE
     under 0.01 m. Launch counters are zeroed just before the run and read
-    just after."""
+    just after: one of kernel C and ``MID_SITES`` of the epilogue a scan."""
     import contextlib
     import io
     import tempfile
@@ -3274,11 +3521,11 @@ def phase_cli_kitti_segmenter(dev):
           f"network (--no-gt-labels): {out.getvalue().splitlines()[0]}; ATE "
           f"{run['ate_rmse_m']:.6f} m, final error {run['final_error_m']:.4f}"
           f" m; {summary[0] if summary else ''}; kernel C launches "
-          f"{counts['knn_clean_image']}")
-    if counts["knn_clean_image"] != n:
+          f"{counts['knn_clean_image']}, the epilogue's {counts['bn_act']}")
+    if counts["knn_clean_image"] != n or counts["bn_act"] != MID_SITES * n:
         raise AssertionError(f"KITTI segmenter path: kernel C ran "
-                             f"{counts['knn_clean_image']} times for {n} "
-                             "scans")
+                             f"{counts['knn_clean_image']} times and the "
+                             f"epilogue {counts['bn_act']} for {n} scans")
     if not run["ate_rmse_m"] <= KITTI_ATE_LIMIT_M:
         raise AssertionError(f"KITTI segmenter path: ATE {run['ate_rmse_m']}"
                              f" m > {KITTI_ATE_LIMIT_M} m")
@@ -3769,8 +4016,8 @@ def _cli(argv):
 def _sum_launches(ranks) -> dict:
     """The ranks' launch counts summed, in ``_read_launch_counts``' form."""
     singles = ("bilateral_filter", "zbuffer_cells", "knn_clean_image",
-               "icp_products", "gn_update", "gn_loop", "evaluate_calls",
-               "build_rows_on_cuda")
+               "bn_act", "icp_products", "gn_update", "gn_loop",
+               "evaluate_calls", "build_rows_on_cuda")
     out = {k: 0 for k in singles}
     out["zbuffer_cells_by_shape"] = {}
     for r in ranks:
@@ -4332,6 +4579,7 @@ def main() -> int:
     recs_b = timed("zbuffer", phase_zbuffer, dev, floors)
     seg_image = timed("segmenter", phase_segmenter, dev)
     timed("segmenter-graph", phase_segmenter_graph, dev)
+    rec_bn = timed("segmenter-epilogue", phase_segmenter_epilogue, dev)
     rec_c = timed("knn", phase_knn, dev, floors, seg_image)
     rec_d, rec_e, rec_f = timed("icp", phase_icp, dev, floors)
     timed("miou", phase_miou, dev)
@@ -4375,6 +4623,7 @@ def main() -> int:
                                  for k, v in paths.items()}
     rec_c["launches_by_path"] = {k: v["knn_clean_image"]
                                  for k, v in paths.items()}
+    rec_bn["launches_by_path"] = {k: v["bn_act"] for k, v in paths.items()}
     for rec, key in ((rec_d, "icp_products"), (rec_e, "gn_update"),
                      (rec_f, "gn_loop")):
         rec["launches_by_path"] = {k: v[key] for k, v in paths.items()}
@@ -4402,7 +4651,7 @@ def main() -> int:
             for k, v in paths.items()}
         rec.update(real.get(rec["shape"], {}))
     on_path, off_path = [], []
-    for rec in (rec_a, *recs_b, rec_c, rec_d, rec_e, rec_f):
+    for rec in (rec_a, *recs_b, rec_c, rec_bn, rec_d, rec_e, rec_f):
         rec["launches"] = sum(rec["launches_by_path"].values())
         (on_path if rec["launches"] else off_path).append(rec)
     # a kernel of a path must have run on it; a shape that no path launches

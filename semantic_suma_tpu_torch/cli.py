@@ -397,6 +397,7 @@ def _launch_counts() -> dict:
     ``ops.icp.evaluate`` (one launch of kernel F each on a card) and of its
     plain linearization on CUDA tensors (none on a path)."""
     from .ops.bilateral import bilateral_filter
+    from .ops.epilogue import bn_act
     from .ops.icp import (evaluate, gn_loop, gn_update, icp_products,
                           plain_on_cuda)
     from .ops.knn import knn_clean_image
@@ -405,6 +406,7 @@ def _launch_counts() -> dict:
             "zbuffer_cells": zbuffer_cells.launches,
             "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
             "knn_clean_image": knn_clean_image.launches,
+            "bn_act": bn_act.launches,
             "icp_products": icp_products.launches,
             "gn_update": gn_update.launches,
             "gn_loop": gn_loop.launches,

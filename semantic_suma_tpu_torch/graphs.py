@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .device import to_host
-from .ops import bilateral, icp, knn, zbuffer
+from .ops import bilateral, epilogue, icp, knn, zbuffer
 from .utils.timing import Stopwatch
 
 # the stream each device's graphs are captured on: one for the process, so
@@ -106,6 +106,7 @@ def _slots():
     return [("bilateral_filter", bilateral.bilateral_filter, "launches"),
             ("zbuffer_cells", zbuffer.zbuffer_cells, "launches"),
             ("knn_clean_image", knn.knn_clean_image, "launches"),
+            ("bn_act", epilogue.bn_act, "launches"),
             ("icp_products", icp.icp_products, "launches"),
             ("gn_update", icp.gn_update, "launches"),
             ("gn_loop", icp.gn_loop, "launches"),

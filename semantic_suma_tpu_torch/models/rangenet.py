@@ -27,6 +27,16 @@ Submodules carry flax's names (``Encoder_0``, ``ConvBlock_3``,
 creation, so that a state dict key is a flax path with dots
 (``convert.rangenet_state_from_flax``).
 
+In ``eval()`` mode, with bfloat16 convolutions and where no layer is split
+over a ``model_group``, :meth:`RangeNet.forward` walks the same submodules
+another way (:meth:`RangeNet._walk`): after each convolution one call of the
+batch-norm epilogue (``ops/epilogue.py``, a CUDA kernel on the card)
+computes batch norm, ``leaky_relu``, the sum that follows and the roundings,
+and writes only what the activation's consumers read: its float32 stream
+where a sum or the head reads it, its bfloat16 copy where a convolution
+does. The arithmetic, its order and its roundings are the modules'; the
+logits are equal.
+
 The KNN label vote and ``labels_for_points`` live in ``ops/knn.py``.
 """
 
@@ -39,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.epilogue import bn_act
 from .labels import TRAIN_CLASSES
 
 BN_EPS = 1e-5
@@ -303,7 +314,13 @@ class Decoder(nn.Module):
 class RangeNet(nn.Module):
     """Full segmenter: ``[B, H, W, 5]`` -> ``[B, H, W, num_classes]``
     float32 logits. It starts in ``eval()`` mode, flax's ``train=False``;
-    ``train()`` switches every batch norm to the batch's statistics."""
+    ``train()`` switches every batch norm to the batch's statistics.
+
+    In ``train()`` mode, with a layer split over a ``model_group`` or with
+    convolutions in another type than bfloat16 (a float32 network checks
+    the arithmetic against flax's), the forward calls the encoder's and
+    decoder's module forwards; otherwise it takes :meth:`_walk`, which
+    computes the same logits."""
 
     def __init__(self, num_classes: int = len(TRAIN_CLASSES),
                  stage_blocks: Sequence[int] = (1, 2, 8, 8, 4),
@@ -318,6 +335,9 @@ class RangeNet(nn.Module):
         self.add_module("Decoder_0", Decoder(widths, dtype))
         self.add_module("Conv_0", Conv(widths[0], num_classes, (1, 1),
                                        bias=True, dtype=torch.float32))
+        # the walk's batch-norm constants, held where the weights no longer
+        # change (``Segmenter``'s inference copy); None: computed a forward
+        self.walk_constants: dict | None = None
         # the JAX package's default is ``train=False``: a network starts in
         # evaluation mode (running statistics) until ``train()``
         self.eval()
@@ -333,6 +353,53 @@ class RangeNet(nn.Module):
                 m.reset_parameters(gen)
         return self
 
+    def batch_norm_constants(self) -> dict:
+        """``{batch norm: (mean, mul, bias)}`` of every batch norm in
+        evaluation mode, ``mul`` by ``BatchNorm.forward``'s own expression
+        ``rsqrt(var + eps) * scale``, on the network's device."""
+        out = {}
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                mul = torch.rsqrt(m.var + BN_EPS) * m.scale
+                out[m] = (m.mean.detach(), mul.detach(), m.bias.detach())
+        return out
+
+    def _walk(self, x: torch.Tensor) -> torch.Tensor:
+        """Encoder and decoder in evaluation mode, one epilogue call a batch
+        norm: the float32 features the head reads. An activation is the pair
+        ``(float32, bfloat16)``, each part None where no consumer reads it:
+        a convolution reads the bfloat16 copy (its own cast then launches
+        nothing), a residual or skip sum and the head the float32 stream."""
+        consts = (self.walk_constants if self.walk_constants is not None
+                  else self.batch_norm_constants())
+
+        def block(cb: ConvBlock, xb, r=None, f32=False, bf16=True):
+            return bn_act(cb.Conv_0(xb), *consts[cb.BatchNorm_0], r, f32=f32,
+                          bf16=bf16)
+
+        def residual(rb: ResidualBlock, xf, xb, f32: bool, bf16: bool):
+            _, hb = block(rb.ConvBlock_0, xb)
+            return block(rb.ConvBlock_1, hb, xf, f32, bf16)
+
+        enc, dec = self.Encoder_0, self.Decoder_0
+        _, xb = block(enc.ConvBlock_0, x)   # the stem: a skip, conv-read only
+        skips = []
+        for down, res in enc.stages:
+            skips.append(xb)
+            xf, xb = block(down, xb, f32=bool(res))
+            for i, rb in enumerate(res):
+                # a stage's last output feeds convolutions only
+                xf, xb = residual(rb, xf, xb, f32=i + 1 < len(res), bf16=True)
+        for k, ((up, bn, skip_conv, res), skip) in enumerate(
+                zip(dec.stages, reversed(skips))):
+            uf, _ = bn_act(up(xb), *consts[bn], f32=True, bf16=False)
+            if skip.shape[3] != uf.shape[3]:  # odd widths
+                skip = skip[:, :, :, :uf.shape[3]]
+            xf, xb = block(skip_conv, skip, uf, f32=True)
+            last = k + 1 == len(dec.stages)   # the head reads it in float32
+            xf, xb = residual(res, xf, xb, f32=last, bf16=not last)
+        return xf
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stride = 2 ** len(self.stage_blocks)
         w = x.shape[2]
@@ -340,8 +407,13 @@ class RangeNet(nn.Module):
         x = x.permute(0, 3, 1, 2)                 # NCHW view of NHWC memory
         if pad:
             x = torch.cat([x, x[:, :, :, :pad]], dim=3)   # wrap-pad
-        feats, skips = self.Encoder_0(x)
-        y = self.Decoder_0(feats, skips)
+        if self.training or self.dtype != torch.bfloat16 or any(
+                getattr(m, "model_group", None) is not None
+                for m in self.modules()):
+            feats, skips = self.Encoder_0(x)
+            y = self.Decoder_0(feats, skips)
+        else:
+            y = self._walk(x)
         logits = self.Conv_0(y.float())
         if pad:
             logits = logits[:, :, :, :w]

@@ -223,7 +223,8 @@ def _trained_segmenter(cfg: DataConfig, model: Network, device):
 def _inference_copy(model: Network, device: torch.device) -> Network:
     """A copy of ``model`` whose convolution weights are stored in their
     compute type (bfloat16), so that no forward casts them again; on the GPU
-    in ``channels_last`` memory, the layout of the network's input."""
+    in ``channels_last`` memory, the layout of the network's input. A
+    darknet copy holds its walk's batch-norm constants, computed once."""
     net = copy.deepcopy(model).eval().requires_grad_(False)
     for m in net.modules():
         if isinstance(m, (Conv, ConvTranspose)):
@@ -233,6 +234,8 @@ def _inference_copy(model: Network, device: torch.device) -> Network:
             m.weight.data = w
             if getattr(m, "bias", None) is not None:
                 m.bias.data = m.bias.data.to(m.dtype)
+    if isinstance(net, RangeNet):
+        net.walk_constants = net.batch_norm_constants()
     return net
 
 
