@@ -94,13 +94,13 @@ and the exit code is non-zero:
      against a CPU copy's: label agreement >= 0.99 on valid pixels; the ms
      of a call by stage (projection, network, KNN vote + labels), its peak
      memory, and no host sync in a call;
-     ``[segmenter-graph]``: both benchmark networks (darknet53,
-     SalsaNext) through ``Segmenter.__call__`` on 6 consecutive 64x2048
-     scans of their cells, an eager call, a capture, replays: logits,
-     labels and probabilities equal to the eager path's bit for bit, no
-     host sync in a replayed call, at most 4 launches in its network span;
-     launches, capture ms, ms a call and memory before and after the
-     capture printed;
+     ``[segmenter-graph]``: the three benchmark networks (darknet53,
+     SalsaNext, SqueezeSegV3-53) through ``Segmenter.__call__`` on 6
+     consecutive 64x2048 scans of their cells, an eager call, a capture,
+     replays: logits, labels and probabilities equal to the eager path's
+     bit for bit, no host sync in a replayed call, at most 4 launches in
+     its network span; launches, capture ms, ms a call and memory before
+     and after the capture printed;
      ``[segmenter-epilogue]``: darknet53's batch-norm epilogue
      (``csrc/bn_act.cu``) at 64x2048 on a scan of its cell: each of a
      forward's 72 calls equal to its plain version on its own inputs, the
@@ -109,6 +109,14 @@ and the exit code is non-zero:
      each site shape's kernel ms beside its bytes bound and the plain
      version's ms, and the ``segmenter/network`` busy ms with the module
      forwards and with the walk;
+     ``[segmenter-sac]``: SqueezeSegV3-53's SAC kernel (``csrc/sac.cu``)
+     at 64x2048 on scans of its cell: each of a forward's 23 calls, and
+     four shapes whose widths leave a partial tile or fit in one, within
+     one bfloat16 ulp of its plain version on its own inputs (the unequal
+     elements printed: 0 so far); each site shape's kernel ms alone in a
+     replayed graph beside its bytes bound and the plain version's ms; 23
+     launches a call, eager and replayed, counted as the path
+     ``segmenter_sac``, the only one that launches the kernel;
  14. kernel C (KNN label vote) against its plain version at 64x900 on two
      random inputs (forced depth ties, +-inf, NaN, all-invalid rows, ties
      across the wrap seam), an input of runs of equal range differences
@@ -234,7 +242,8 @@ none of D and E. It prints the card's name and power limit, one
 ``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
 shape that a path launched, for kernel C, the epilogue (``bn_act``, its
 ``ms``, ``bound_ms`` and ``plain_ms`` those of a darknet53 forward's calls
-in phase 13) and kernels D, E and F (``launches`` is
+in phase 13), the SAC kernel (``sac_modulate``, those of a SqueezeSegV3-53
+forward's calls in phase 13) and kernels D, E and F (``launches`` is
 the sum over the paths, ``launches_by_path`` the parts; what no path
 launches, a KITTI scan's projection (phase 3) and the two-stream render
 (phases 3 and 8), are listed in a ``{"held_off_path": [...]}`` line with 0
@@ -2097,12 +2106,14 @@ def _zero_launch_counts():
                                                  gn_update, icp_products,
                                                  plain_on_cuda)
     from semantic_suma_tpu_torch.ops.knn import knn_clean_image
+    from semantic_suma_tpu_torch.ops.sac import sac_modulate
     from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
     bilateral_filter.launches = 0
     zbuffer_cells.launches = 0
     zbuffer_cells.launches_by_shape = {}
     knn_clean_image.launches = 0
     bn_act.launches = 0
+    sac_modulate.launches = 0
     icp_products.launches = 0
     gn_update.launches = 0
     gn_loop.launches = 0
@@ -2854,7 +2865,8 @@ def phase_segmenter(dev):
 # the benchmark cells whose networks [segmenter-graph] replays, and how many
 # consecutive scans of a sequence each runs: an eager call, a capture, replays
 SEGMENTER_GRAPH_CELLS = ("sumapp-rangenet53-offline",
-                         "sumapp-salsanext-offline")
+                         "sumapp-salsanext-offline",
+                         "sumapp-ssgv3-53-offline")
 SEGMENTER_GRAPH_SCANS = 6
 # launches a replayed call of the span segmenter/network may make: the
 # input's copy and the graph's launch, with room
@@ -2902,12 +2914,13 @@ def _memory() -> dict:
 def phase_segmenter_graph(dev):
     """``[segmenter-graph]``: ``Segmenter.__call__``'s network as a CUDA
     graph, for the network of each of ``SEGMENTER_GRAPH_CELLS`` (darknet53,
-    SalsaNext) on ``SEGMENTER_GRAPH_SCANS`` consecutive 64x2048 scans of
-    its cell's sequence (the benchmark's generator): the first call eager,
-    the second a capture, the rest replays. Held: every call's logits (a
-    forward hook on ``net``, as the benchmark's check reads them), labels
-    and probabilities equal bit for bit to the eager path's (projection,
-    ``Segmenter.logits``, the vote); one capture and the replays after it;
+    SalsaNext, SqueezeSegV3-53) on ``SEGMENTER_GRAPH_SCANS`` consecutive
+    64x2048 scans of its cell's sequence (the benchmark's generator): the
+    first call eager, the second a capture, the rest replays. Held: every
+    call's logits (a forward hook on ``net``, as the benchmark's check
+    reads them), labels and probabilities equal bit for bit to the eager
+    path's (projection, ``Segmenter.logits``, the vote); one capture and
+    the replays after it;
     no host sync in a replayed call (CUDA sync debug mode); at most
     ``SEGMENTER_GRAPH_MAX_LAUNCHES`` launches in a replayed call's
     ``segmenter/network`` span (``spans.reduce``, as ``network_launches``
@@ -3242,6 +3255,164 @@ def phase_segmenter_epilogue(dev):
             "max_abs_err": err, "ms": tot["kernel"], "plain_ms": tot["plain"],
             "bound_ms": tot["bound"], "bound_by": "bytes",
             "library_ms": None}
+
+
+# [segmenter-sac]: SqueezeSegV3-53's cell, the SAC calls of a forward, and
+# shapes whose widths leave a partial tile or fit in one
+SAC_CELL = "sumapp-ssgv3-53-offline"
+SAC_SITES = 23
+SAC_ODD_SHAPES = ((2, 16, 5, 37), (1, 24, 7, 100), (1, 256, 3, 13),
+                  (1, 8, 1, 1))
+
+
+def _sac_sites(net, x) -> list:
+    """The arguments of every ``sac_modulate`` call of one eager walk of
+    ``net`` on ``x``, in order."""
+    from semantic_suma_tpu_torch.models import squeezesegv3
+    sites, real = [], squeezesegv3.sac_modulate
+
+    def record(*a):
+        sites.append(a)
+        return real(*a)
+
+    squeezesegv3.sac_modulate = record
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        squeezesegv3.sac_modulate = real
+    return sites
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """``(unequal elements, largest distance in bfloat16 ulps)`` of two
+    bfloat16 tensors (the bit patterns as ordered integers)."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -32768 - b, b)
+    d = (ordered(got) - ordered(want)).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def _sac_odd_inputs(shape, dev, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, c, h, w = shape
+    cl = torch.channels_last
+    a = (torch.randn(n, 9 * c, h, w, generator=gen, device=dev) * 3).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    x = torch.randn(n, c, h, w, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    mean = torch.randn(9 * c, generator=gen, device=dev)
+    mul = torch.rand(9 * c, generator=gen, device=dev) + 0.5
+    bias = torch.randn(9 * c, generator=gen, device=dev) * 0.2
+    return a, x, mean, mul, bias
+
+
+def sac_checks(dev, seg, scans, tag: str) -> tuple:
+    """The SAC kernel in ``seg``'s SqueezeSegV3 walk on the first of
+    ``scans`` (64x2048 projections): each call of a forward against its plain
+    version on its own inputs, and on ``SAC_ODD_SHAPES``; each site shape's
+    kernel ms alone in a replayed graph beside its bytes bound and the plain
+    version's ms; the launches of ``Segmenter.__call__`` on every scan (an
+    eager call, a capture, replays), counted from zero as a path's. Returns
+    ``(the kernel's record, the path's launch counts)``."""
+    from semantic_suma_tpu_torch.models.rangenet import make_input
+    from semantic_suma_tpu_torch.ops import sac
+    from semantic_suma_tpu_torch.ops.projection import project_scan
+    pts = scans[0].points
+    res = project_scan(pts, remissions=torch.zeros_like(pts[:, 0]),
+                       cfg=seg.cfg)
+    x = make_input(res.vertex_map, res.depth_map, res.remission,
+                   res.vertex_valid)[None]
+    sites = _sac_sites(seg.net, x)
+    unequal, ulps, total = 0, 0, 0
+    with torch.no_grad():
+        for args in [*sites, *(_sac_odd_inputs(s, dev)
+                               for s in SAC_ODD_SHAPES)]:
+            got = sac.sac_modulate(*args)
+            want = sac.sac_modulate_plain(*args)
+            u, d = _ulps(got, want)
+            unequal, ulps, total = unequal + u, max(ulps, d), \
+                total + got.numel()
+    print(f"[segmenter-sac] {tag}: {len(sites)} calls of a forward and "
+          f"{len(SAC_ODD_SHAPES)} odd shapes against the plain version (the "
+          f"ATen operations on the card): {unequal} of {total} elements "
+          f"unequal, at most {ulps} bfloat16 ulp")
+    by_shape: dict = {}
+    for args in sites:
+        by_shape.setdefault(tuple(args[1].shape), [args, 0])[1] += 1
+    tot = {"kernel": 0.0, "bound": 0.0, "plain": 0.0, "bytes": 0}
+    with torch.no_grad():
+        for shape, (args, count) in by_shape.items():
+            k_ms = min(graph_ms(lambda: sac.sac_modulate(*args), 50)
+                       for _ in range(2))
+            p_ms = graph_ms(lambda: sac.sac_modulate_plain(*args), 10)
+            nbytes = 2 * (2 * args[0].numel() + args[1].numel())
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            for k, v in (("kernel", k_ms), ("bound", b_ms), ("plain", p_ms),
+                         ("bytes", nbytes)):
+                tot[k] += v * count
+            print(f"[segmenter-sac] {tag} x {list(shape)} x{count}: kernel "
+                  f"{k_ms:.5f} ms, bytes bound {b_ms:.5f} ms ({nbytes} B, "
+                  f"{100 * b_ms / k_ms:.1f}% of the roofline), plain "
+                  f"{p_ms:.5f} ms")
+    print(f"[segmenter-sac] {tag}: a forward's {len(sites)} calls: kernel "
+          f"{tot['kernel']:.4f} ms, bytes bound {tot['bound']:.4f} ms "
+          f"({tot['bytes'] / 1e9:.3f} GB, "
+          f"{100 * tot['bound'] / tot['kernel']:.1f}% of the roofline), "
+          f"plain {tot['plain']:.4f} ms")
+    _zero_launch_counts()
+    per_call = []
+    for s in scans:
+        n0 = sac.sac_modulate.launches
+        seg(s.points)
+        per_call.append(sac.sac_modulate.launches - n0)
+    torch.cuda.synchronize()
+    counts = _read_launch_counts()
+    print(f"[segmenter-sac] {tag} through Segmenter.__call__ on {len(scans)} "
+          f"scans: calls {dict(seg.replayer.counts['segmenter'])}, "
+          f"sac_modulate launches a call {per_call}, the epilogue's "
+          f"{counts['bn_act']} in all")
+    if ulps > 1:
+        raise AssertionError(f"segmenter-sac: {tag}: {unequal} elements "
+                             f"unequal to the plain version, up to {ulps} "
+                             "ulp")
+    if len(sites) != SAC_SITES or any(n != SAC_SITES for n in per_call):
+        raise AssertionError(f"segmenter-sac: {tag}: {len(sites)} sites, "
+                             f"{per_call} launches, not {SAC_SITES}")
+    rec = {"name": "sac_modulate", "route": "cuda",
+           "shape": f"SqueezeSegV3-53 {seg.cfg.height}x{seg.cfg.width}, "
+                    f"{len(sites)} calls",
+           "source": "semantic_suma_tpu_torch/csrc/sac.cu",
+           "replaces": "none (the JAX package has no SqueezeSegV3)",
+           "max_abs_err": float(ulps), "ms": tot["kernel"],
+           "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+           "bound_by": "bytes", "library_ms": None}
+    return rec, counts
+
+
+def phase_segmenter_sac(dev):
+    """``[segmenter-sac]``: the SAC kernel (``csrc/sac.cu``) in
+    SqueezeSegV3-53's walk, with ``weights/segmenter_ssgv3_synth.pkl`` at
+    64x2048 on scans of its cell (``sac_checks``). Held: every call of a
+    forward and every odd shape within one bfloat16 ulp of its plain
+    version (the unequal elements counted and printed);
+    ``SAC_SITES`` launches a call, eager and replayed. Returns the kernel's
+    record and the path's launch counts."""
+    from semantic_suma_tpu_torch.config import DataConfig
+    from semantic_suma_tpu_torch.models.segmenter import Segmenter
+    from suma_bench import harness
+    segj = harness.cell(SAC_CELL)["config"]["segmenter"]
+    _, _, scans = _cell_sequence(dev, SAC_CELL, 13)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg = Segmenter.load(str(harness.ROOT / segj["weights"]),
+                         DataConfig(**segj["data"]),
+                         use_knn=segj["use_knn"], device=dev)
+    out = sac_checks(dev, seg, scans[:SEGMENTER_GRAPH_SCANS],
+                     f"SqueezeSegV3-53 ({SAC_CELL})")
+    print(f"[segmenter-sac] {_smi('name,power.limit')}")
+    return out
 
 
 def _knn_inputs(h, w, seed, dev):
@@ -4016,7 +4187,8 @@ def _cli(argv):
 def _sum_launches(ranks) -> dict:
     """The ranks' launch counts summed, in ``_read_launch_counts``' form."""
     singles = ("bilateral_filter", "zbuffer_cells", "knn_clean_image",
-               "bn_act", "icp_products", "gn_update", "gn_loop",
+               "bn_act", "sac_modulate", "icp_products", "gn_update",
+               "gn_loop",
                "evaluate_calls", "build_rows_on_cuda")
     out = {k: 0 for k in singles}
     out["zbuffer_cells_by_shape"] = {}
@@ -4580,11 +4752,13 @@ def main() -> int:
     seg_image = timed("segmenter", phase_segmenter, dev)
     timed("segmenter-graph", phase_segmenter_graph, dev)
     rec_bn = timed("segmenter-epilogue", phase_segmenter_epilogue, dev)
+    rec_sac, sac_path = timed("segmenter-sac", phase_segmenter_sac, dev)
     rec_c = timed("knn", phase_knn, dev, floors, seg_image)
     rec_d, rec_e, rec_f = timed("icp", phase_icp, dev, floors)
     timed("miou", phase_miou, dev)
     timed("parity", phase_parity, dev)
-    paths = {"main": timed("main", phase_main_path, dev, args.profile_scans)}
+    paths = {"segmenter_sac": sac_path,
+             "main": timed("main", phase_main_path, dev, args.profile_scans)}
     paths["chunked"] = timed("chunked", phase_chunked, dev)
     timed("step-graph", phase_step_graph, dev)
     timed("default", phase_default_path, dev)
@@ -4624,6 +4798,13 @@ def main() -> int:
     rec_c["launches_by_path"] = {k: v["knn_clean_image"]
                                  for k, v in paths.items()}
     rec_bn["launches_by_path"] = {k: v["bn_act"] for k, v in paths.items()}
+    rec_sac["launches_by_path"] = {k: v["sac_modulate"]
+                                   for k, v in paths.items()}
+    # the SAC kernel runs where SqueezeSegV3 runs, and nowhere else
+    if any(n for k, n in rec_sac["launches_by_path"].items()
+           if k != "segmenter_sac"):
+        raise AssertionError(f"sac_modulate launched without SqueezeSegV3: "
+                             f"{rec_sac['launches_by_path']}")
     for rec, key in ((rec_d, "icp_products"), (rec_e, "gn_update"),
                      (rec_f, "gn_loop")):
         rec["launches_by_path"] = {k: v[key] for k, v in paths.items()}
@@ -4651,7 +4832,7 @@ def main() -> int:
             for k, v in paths.items()}
         rec.update(real.get(rec["shape"], {}))
     on_path, off_path = [], []
-    for rec in (rec_a, *recs_b, rec_c, rec_bn, rec_d, rec_e, rec_f):
+    for rec in (rec_a, *recs_b, rec_c, rec_bn, rec_sac, rec_d, rec_e, rec_f):
         rec["launches"] = sum(rec["launches_by_path"].values())
         (on_path if rec["launches"] else off_path).append(rec)
     # a kernel of a path must have run on it; a shape that no path launches

@@ -14,6 +14,8 @@
       --steps 2000 --batch 8 --lr 2e-3 --out w.pkl
   python -m semantic_suma_tpu_torch.cli train-segmenter --arch salsanext \\
       --synthetic 96 --steps 3000 --batch 8 --lr 2e-3 --out w.pkl
+  python -m semantic_suma_tpu_torch.cli train-segmenter --arch squeezesegv3 \\
+      --synthetic 96 --steps 1500 --batch 8 --lr 2e-3 --out w.pkl
 
 Every command goes to the GPU unless the top-level ``--cpu`` is given;
 without a GPU it fails rather than falling back to the CPU. The printed
@@ -401,12 +403,14 @@ def _launch_counts() -> dict:
     from .ops.icp import (evaluate, gn_loop, gn_update, icp_products,
                           plain_on_cuda)
     from .ops.knn import knn_clean_image
+    from .ops.sac import sac_modulate
     from .ops.zbuffer import zbuffer_cells
     return {"bilateral_filter": bilateral_filter.launches,
             "zbuffer_cells": zbuffer_cells.launches,
             "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
             "knn_clean_image": knn_clean_image.launches,
             "bn_act": bn_act.launches,
+            "sac_modulate": sac_modulate.launches,
             "icp_products": icp_products.launches,
             "gn_update": gn_update.launches,
             "gn_loop": gn_loop.launches,
@@ -495,8 +499,11 @@ def cmd_eval(args) -> int:
 def _train_model(args):
     from .models import rangenet as rn
     from .models import salsanext as sn
+    from .models import squeezesegv3 as sq
     if args.arch == "salsanext":
         return sn.small_salsanext() if args.small else sn.SalsaNext()
+    if args.arch == "squeezesegv3":
+        return sq.small_squeezesegv3() if args.small else sq.SqueezeSegV3()
     return (rn.small_rangenet() if args.small
             else rn.mid_rangenet() if args.mid else rn.RangeNet())
 
@@ -609,11 +616,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     trainp.add_argument("--seed", type=int, default=0)
     trainp.add_argument("--val-fraction", type=float, default=0.1,
                         help="held-out fraction for mIoU (dataset mode)")
-    trainp.add_argument("--arch", choices=("rangenet_darknet", "salsanext"),
+    trainp.add_argument("--arch", choices=("rangenet_darknet", "salsanext",
+                                           "squeezesegv3"),
                         default="rangenet_darknet",
                         help="the network: RangeNet++'s darknet "
-                             "(models.rangenet) or SalsaNext "
-                             "(models.salsanext)")
+                             "(models.rangenet), SalsaNext "
+                             "(models.salsanext) or SqueezeSegV3 "
+                             "(models.squeezesegv3)")
     trainp.add_argument("--small", action="store_true",
                         help="the test-sized variant of --arch")
     trainp.add_argument("--mid", action="store_true",

@@ -1,6 +1,8 @@
-// The darknet network's batch-norm epilogue: batch norm with the running
-// statistics, leaky_relu(0.1), an optional residual or skip sum, and the
-// roundings its consumers need, in one pass over a convolution's output.
+// The batch-norm epilogue of the range-image networks: batch norm with the
+// running statistics, leaky_relu of a slope the caller gives (darknet's 0.1;
+// 0, a ReLU, in SqueezeSegV3's blocks), an optional residual or skip sum,
+// and the roundings its consumers need, in one pass over a convolution's
+// output.
 //
 // It replaces no TPU kernel. The JAX package's darknet network
 // (semantic_suma_tpu/models/rangenet.py) runs flax's nn.BatchNorm and
@@ -15,7 +17,8 @@
 // (channels innermost), in the order and roundings of the PyTorch modules
 // (models/rangenet.py: BatchNorm.forward, F.leaky_relu, the sums, the next
 // Conv's .to(bfloat16)):
-//   u = float(y) - mean[c];  v = u * mul[c] + bias[c];  w = v > 0 ? v : v * 0.1
+//   u = float(y) - mean[c];  v = u * mul[c] + bias[c];
+//   w = v > 0 ? v : v * slope
 //   s = r + w                           (where a float32 stream r is given)
 //   out_f32 = s;  out_bf16 = round_to_nearest_even(s)  (each where asked for)
 // mul = rsqrt(var + eps) * scale is computed once by the caller, by
@@ -59,27 +62,27 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 256;      // elements a warp handles at a time
 constexpr int kHalf = kChunk / 2;
 constexpr int kBlocksPerSM = 8;  // 2048 threads: a full SM
-constexpr float kSlope = 0.1f;
 
 __device__ __forceinline__ float bn_leaky(float t, float mean, float mul,
-                                          float bias) {
+                                          float bias, float slope) {
   const float v = __fmaf_rn(__fsub_rn(t, mean), mul, bias);
-  return v > 0.f ? v : __fmul_rn(v, kSlope);
+  return v > 0.f ? v : __fmul_rn(v, slope);
 }
 
 // The 4 elements of a group, from bfloat16 y and float32 r, batch-normed,
 // activated and summed.
 template <bool HAS_R>
 __device__ __forceinline__ float4 group4(uint2 yv, float4 rv, const float* m,
-                                         const float* k, const float* b) {
+                                         const float* k, const float* b,
+                                         float slope) {
   const float2 lo = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&yv.x));
   const float2 hi = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&yv.y));
-  float4 s = make_float4(bn_leaky(lo.x, m[0], k[0], b[0]),
-                         bn_leaky(lo.y, m[1], k[1], b[1]),
-                         bn_leaky(hi.x, m[2], k[2], b[2]),
-                         bn_leaky(hi.y, m[3], k[3], b[3]));
+  float4 s = make_float4(bn_leaky(lo.x, m[0], k[0], b[0], slope),
+                         bn_leaky(lo.y, m[1], k[1], b[1], slope),
+                         bn_leaky(hi.x, m[2], k[2], b[2], slope),
+                         bn_leaky(hi.y, m[3], k[3], b[3], slope));
   if (HAS_R) {
     s.x = __fadd_rn(rv.x, s.x);
     s.y = __fadd_rn(rv.y, s.y);
@@ -114,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
                const float* __restrict__ r, const float* __restrict__ mean,
                const float* __restrict__ mul, const float* __restrict__ bias,
                float* __restrict__ out_f, __nv_bfloat16* __restrict__ out_b,
-               long long n, int c) {
+               long long n, int c, float slope) {
   constexpr int kWarps = kThreads / 32;
   const long long stride = (long long)gridDim.x * kWarps * kChunk;
   const long long first = ((long long)blockIdx.x * kWarps + threadIdx.x / 32) *
@@ -144,8 +147,8 @@ __global__ void __launch_bounds__(kThreads)
       r1 = __ldg(reinterpret_cast<const float4*>(r + e));
       if (two) r2 = __ldg(reinterpret_cast<const float4*>(r + e2));
     }
-    const float4 s1 = group4<HAS_R>(y1, r1, m[0], k[0], b[0]);
-    const float4 s2 = group4<HAS_R>(y2, r2, m[1], k[1], b[1]);
+    const float4 s1 = group4<HAS_R>(y1, r1, m[0], k[0], b[0], slope);
+    const float4 s2 = group4<HAS_R>(y2, r2, m[1], k[1], b[1], slope);
     if (OUT_F) {
       *reinterpret_cast<float4*>(out_f + e) = s1;
       if (two) *reinterpret_cast<float4*>(out_f + e2) = s2;
@@ -185,7 +188,7 @@ bool aligned16(const void* p) {
 template <bool HAS_R, bool OUT_F, bool OUT_B>
 void launch(const void* y, const float* r, const float* mean, const float* mul,
             const float* bias, float* out_f, void* out_b, long long n, int c,
-            cudaStream_t stream) {
+            float slope, cudaStream_t stream) {
   const auto* yb = static_cast<const __nv_bfloat16*>(y);
   auto* ob = static_cast<__nv_bfloat16*>(out_b);
   const long long full = (long long)sm_count() * kBlocksPerSM;
@@ -196,19 +199,19 @@ void launch(const void* y, const float* r, const float* mean, const float* mul,
   if (blocks > full) blocks = full;
   blocks = (blocks + step - 1) / step * step;
   bn_act_kernel<HAS_R, OUT_F, OUT_B><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      yb, r, mean, mul, bias, out_f, ob, n, c);
+      yb, r, mean, mul, bias, out_f, ob, n, c, slope);
 }
 
 int dispatch(const void* y, const float* r, const float* mean,
              const float* mul, const float* bias, float* out_f, void* out_b,
-             long long n, int c, cudaStream_t stream) {
+             long long n, int c, float slope, cudaStream_t stream) {
   const int which = (r != nullptr) * 4 + (out_f != nullptr) * 2 +
                     (out_b != nullptr);
   switch (which) {
 #define BN_ACT_CASE(R, F, B)                                          \
   case R * 4 + F * 2 + B:                                             \
     launch<(R) != 0, (F) != 0, (B) != 0>(y, r, mean, mul, bias, out_f, \
-                                         out_b, n, c, stream);         \
+                                         out_b, n, c, slope, stream);  \
     break;
     BN_ACT_CASE(0, 0, 1)
     BN_ACT_CASE(0, 1, 0)
@@ -228,16 +231,17 @@ int dispatch(const void* y, const float* r, const float* mean,
 // y bf16[n] (an [N, H, W, C] channels_last activation, C = c innermost, a
 // multiple of 8), mean, mul, bias f32[c]; r f32[n] or null; out_f f32[n] or
 // null, out_b bf16[n] or null, not both null. All on the device, 16-byte
-// aligned.
+// aligned. slope: leaky_relu's, applied as v * slope where v <= 0.
 // Launches one kernel on `stream`; returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int bn_act(const void* y, const float* r, const float* mean,
                       const float* mul, const float* bias, float* out_f,
-                      void* out_b, long long n, int c, cudaStream_t stream) {
+                      void* out_b, long long n, int c, float slope,
+                      cudaStream_t stream) {
   if (y == nullptr || mean == nullptr || mul == nullptr || bias == nullptr ||
       c <= 0 || c % 8 != 0 || n <= 0 || n % c != 0 || !aligned16(y) ||
       !aligned16(r) || !aligned16(mean) || !aligned16(mul) ||
       !aligned16(bias) || !aligned16(out_f) || !aligned16(out_b))
     return (int)cudaErrorInvalidValue;
-  return dispatch(y, r, mean, mul, bias, out_f, out_b, n, c, stream);
+  return dispatch(y, r, mean, mul, bias, out_f, out_b, n, c, slope, stream);
 }

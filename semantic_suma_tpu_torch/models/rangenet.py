@@ -311,6 +311,52 @@ class Decoder(nn.Module):
         return x
 
 
+def batch_norm_constants(net: nn.Module) -> dict:
+    """``{batch norm: (mean, mul, bias)}`` of every batch norm of ``net`` in
+    evaluation mode, ``mul`` by ``BatchNorm.forward``'s own expression
+    ``rsqrt(var + eps) * scale``, on the network's device."""
+    out = {}
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            mul = torch.rsqrt(m.var + BN_EPS) * m.scale
+            out[m] = (m.mean.detach(), mul.detach(), m.bias.detach())
+    return out
+
+
+# The inference walks' steps (``RangeNet._walk``, ``SqueezeSegV3._walk``):
+# an activation is the pair ``(float32, bfloat16)``, each part None where no
+# consumer reads it; ``consts`` is :func:`batch_norm_constants`.
+
+def walk_block(consts: dict, cb: ConvBlock, xb, r=None, f32=False,
+               bf16=True):
+    """A :class:`ConvBlock` on the bfloat16 ``xb``, ``r +`` its output where
+    a float32 ``r`` is given: one epilogue call."""
+    return bn_act(cb.Conv_0(xb), *consts[cb.BatchNorm_0], r, f32=f32,
+                  bf16=bf16)
+
+
+def walk_residual(consts: dict, rb: ResidualBlock, xf, xb, f32: bool,
+                  bf16: bool):
+    """A :class:`ResidualBlock` on ``(xf, xb)``: two epilogue calls, the
+    second adding ``xf``."""
+    _, hb = walk_block(consts, rb.ConvBlock_0, xb)
+    return walk_block(consts, rb.ConvBlock_1, hb, xf, f32, bf16)
+
+
+def walk_decoder(consts: dict, dec: Decoder, xb, skips) -> torch.Tensor:
+    """:meth:`Decoder.forward` on the bfloat16 ``xb`` and the bfloat16
+    ``skips``: the float32 features the head reads."""
+    for k, ((up, bn, skip_conv, res), skip) in enumerate(
+            zip(dec.stages, reversed(skips))):
+        uf, _ = bn_act(up(xb), *consts[bn], f32=True, bf16=False)
+        if skip.shape[3] != uf.shape[3]:  # odd widths
+            skip = skip[:, :, :, :uf.shape[3]]
+        xf, xb = walk_block(consts, skip_conv, skip, uf, f32=True)
+        last = k + 1 == len(dec.stages)   # the head reads it in float32
+        xf, xb = walk_residual(consts, res, xf, xb, f32=last, bf16=not last)
+    return xf
+
+
 class RangeNet(nn.Module):
     """Full segmenter: ``[B, H, W, 5]`` -> ``[B, H, W, num_classes]``
     float32 logits. It starts in ``eval()`` mode, flax's ``train=False``;
@@ -353,17 +399,6 @@ class RangeNet(nn.Module):
                 m.reset_parameters(gen)
         return self
 
-    def batch_norm_constants(self) -> dict:
-        """``{batch norm: (mean, mul, bias)}`` of every batch norm in
-        evaluation mode, ``mul`` by ``BatchNorm.forward``'s own expression
-        ``rsqrt(var + eps) * scale``, on the network's device."""
-        out = {}
-        for m in self.modules():
-            if isinstance(m, BatchNorm):
-                mul = torch.rsqrt(m.var + BN_EPS) * m.scale
-                out[m] = (m.mean.detach(), mul.detach(), m.bias.detach())
-        return out
-
     def _walk(self, x: torch.Tensor) -> torch.Tensor:
         """Encoder and decoder in evaluation mode, one epilogue call a batch
         norm: the float32 features the head reads. An activation is the pair
@@ -371,34 +406,19 @@ class RangeNet(nn.Module):
         a convolution reads the bfloat16 copy (its own cast then launches
         nothing), a residual or skip sum and the head the float32 stream."""
         consts = (self.walk_constants if self.walk_constants is not None
-                  else self.batch_norm_constants())
-
-        def block(cb: ConvBlock, xb, r=None, f32=False, bf16=True):
-            return bn_act(cb.Conv_0(xb), *consts[cb.BatchNorm_0], r, f32=f32,
-                          bf16=bf16)
-
-        def residual(rb: ResidualBlock, xf, xb, f32: bool, bf16: bool):
-            _, hb = block(rb.ConvBlock_0, xb)
-            return block(rb.ConvBlock_1, hb, xf, f32, bf16)
-
-        enc, dec = self.Encoder_0, self.Decoder_0
-        _, xb = block(enc.ConvBlock_0, x)   # the stem: a skip, conv-read only
+                  else batch_norm_constants(self))
+        enc = self.Encoder_0
+        # the stem: a skip, conv-read only
+        _, xb = walk_block(consts, enc.ConvBlock_0, x)
         skips = []
         for down, res in enc.stages:
             skips.append(xb)
-            xf, xb = block(down, xb, f32=bool(res))
+            xf, xb = walk_block(consts, down, xb, f32=bool(res))
             for i, rb in enumerate(res):
                 # a stage's last output feeds convolutions only
-                xf, xb = residual(rb, xf, xb, f32=i + 1 < len(res), bf16=True)
-        for k, ((up, bn, skip_conv, res), skip) in enumerate(
-                zip(dec.stages, reversed(skips))):
-            uf, _ = bn_act(up(xb), *consts[bn], f32=True, bf16=False)
-            if skip.shape[3] != uf.shape[3]:  # odd widths
-                skip = skip[:, :, :, :uf.shape[3]]
-            xf, xb = block(skip_conv, skip, uf, f32=True)
-            last = k + 1 == len(dec.stages)   # the head reads it in float32
-            xf, xb = residual(res, xf, xb, f32=last, bf16=not last)
-        return xf
+                xf, xb = walk_residual(consts, rb, xf, xb,
+                                       f32=i + 1 < len(res), bf16=True)
+        return walk_decoder(consts, self.Decoder_0, xb, skips)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stride = 2 ** len(self.stage_blocks)

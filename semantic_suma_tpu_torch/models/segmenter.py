@@ -7,14 +7,15 @@
   weights file's ``model["arch"]`` names (:data:`ARCHS`): the darknet
   ``RangeNet`` (``"rangenet_darknet"``, also where the key is absent, as in
   every blob the JAX package writes; its weights in the JAX package's blob
-  format, ``weights/segmenter_synth_*.pkl``, read and written back in it) or
-  ``SalsaNext`` (``"salsanext"``, a network the JAX package does not have;
-  its weights the module's own state dict, ``convert.arrays_from_state``).
+  format, ``weights/segmenter_synth_*.pkl``, read and written back in it),
+  ``SalsaNext`` (``"salsanext"``) or ``SqueezeSegV3`` (``"squeezesegv3"``),
+  networks the JAX package does not have, their weights the module's own
+  state dict (``convert.arrays_from_state``).
 * The evaluation helpers (confusion matrix, mIoU, class weights) and the
   datasets of range images with train-class labels, from the synthetic
   world or from a KITTI reader.
 
-* Training, of either network: :class:`TrainState` (the module with its
+* Training, of any of the networks: :class:`TrainState` (the module with its
   float32 master weights and batch-statistics buffers, its AdamW and the
   step),
   :func:`loss_fn` (pixel-weighted cross entropy), :func:`make_train_step`,
@@ -46,13 +47,16 @@ from ..ops.projection import project_scan
 from ..parallel.distributed import Group
 from ..utils.timing import Stopwatch
 from .labels import raw_to_train
-from .rangenet import Conv, ConvTranspose, RangeNet, make_input, small_rangenet
+from .rangenet import (Conv, ConvTranspose, RangeNet, batch_norm_constants,
+                       make_input, small_rangenet)
 from .salsanext import SalsaNext
+from .squeezesegv3 import SqueezeSegV3
 
-DARKNET, SALSANEXT = "rangenet_darknet", "salsanext"
-ARCHS = (DARKNET, SALSANEXT)
-# a segmentation network the port builds: either module
-Network = RangeNet | SalsaNext
+DARKNET, SALSANEXT, SQUEEZESEGV3 = ("rangenet_darknet", "salsanext",
+                                    "squeezesegv3")
+ARCHS = (DARKNET, SALSANEXT, SQUEEZESEGV3)
+# a segmentation network the port builds: any of the modules
+Network = RangeNet | SalsaNext | SqueezeSegV3
 
 
 def build_network(spec: dict) -> Network:
@@ -61,6 +65,10 @@ def build_network(spec: dict) -> Network:
     arch = spec.get("arch", DARKNET)
     if arch == SALSANEXT:
         return SalsaNext(num_classes=spec["num_classes"], base=spec["base"])
+    if arch == SQUEEZESEGV3:
+        return SqueezeSegV3(num_classes=spec["num_classes"],
+                            stage_blocks=tuple(spec["stage_blocks"]),
+                            widths=tuple(spec["widths"]))
     if arch == DARKNET:
         return RangeNet(num_classes=spec["num_classes"],
                         stage_blocks=tuple(spec["stage_blocks"]),
@@ -74,16 +82,17 @@ def network_spec(model: Network) -> dict:
     if isinstance(model, SalsaNext):
         return {"arch": SALSANEXT, "num_classes": model.num_classes,
                 "base": model.base}
-    return {"arch": DARKNET, "num_classes": model.num_classes,
+    arch = SQUEEZESEGV3 if isinstance(model, SqueezeSegV3) else DARKNET
+    return {"arch": arch, "num_classes": model.num_classes,
             "stage_blocks": tuple(model.stage_blocks),
             "widths": tuple(model.widths)}
 
 
 def _variables_of(model: Network) -> dict:
     """The weights file's ``variables`` of ``model``: flax variables for the
-    darknet RangeNet, the state dict's arrays for SalsaNext."""
+    darknet RangeNet, the state dict's arrays for the others."""
     from ..convert import arrays_from_state, flax_variables_from_rangenet
-    if isinstance(model, SalsaNext):
+    if not isinstance(model, RangeNet):
         return arrays_from_state(model.state_dict())
     return flax_variables_from_rangenet(model.state_dict())
 
@@ -91,7 +100,7 @@ def _variables_of(model: Network) -> dict:
 def _state_of(model: Network, variables) -> dict:
     """The reverse of :func:`_variables_of`: ``model``'s state dict."""
     from ..convert import rangenet_state_from_flax, state_from_arrays
-    if isinstance(model, SalsaNext):
+    if not isinstance(model, RangeNet):
         return state_from_arrays(variables)
     return rangenet_state_from_flax(variables)
 
@@ -135,9 +144,9 @@ def create_train_state(model: Network, seed: int = 0,
                        learning_rate=1e-3, weight_decay: float = 1e-4,
                        total_steps: int | None = None, device=None):
     """Initialise ``model`` from ``seed`` (its ``reset_parameters``: flax's
-    initialisation for the darknet RangeNet, PyTorch's for SalsaNext, drawn
-    from a ``torch.Generator``), move it to the device in training mode, and
-    give it ``optax.adamw``'s optimizer: AdamW with b1 0.9, b2 0.999, eps 1e-8
+    initialisation for the darknet RangeNet, PyTorch's for SalsaNext and
+    SqueezeSegV3, drawn from a ``torch.Generator``), move it to the device
+    in training mode, and give it ``optax.adamw``'s optimizer: AdamW with b1 0.9, b2 0.999, eps 1e-8
     outside the square root and a decoupled weight decay scaled by the
     learning rate, on every parameter (the batch-norm scales and biases
     too; the running statistics are buffers). ``learning_rate`` may be a
@@ -214,7 +223,7 @@ def make_train_step(schedule, class_weights=None, group: Group | None = None):
 
 
 def _trained_segmenter(cfg: DataConfig, model: Network, device):
-    """A :class:`Segmenter` of the trained module's weights (either
+    """A :class:`Segmenter` of the trained module's weights (any
     network)."""
     return Segmenter(cfg, model=model, variables=_variables_of(model),
                      device=device)
@@ -224,7 +233,8 @@ def _inference_copy(model: Network, device: torch.device) -> Network:
     """A copy of ``model`` whose convolution weights are stored in their
     compute type (bfloat16), so that no forward casts them again; on the GPU
     in ``channels_last`` memory, the layout of the network's input. A
-    darknet copy holds its walk's batch-norm constants, computed once."""
+    darknet or SqueezeSegV3 copy holds its walk's batch-norm constants,
+    computed once."""
     net = copy.deepcopy(model).eval().requires_grad_(False)
     for m in net.modules():
         if isinstance(m, (Conv, ConvTranspose)):
@@ -234,8 +244,8 @@ def _inference_copy(model: Network, device: torch.device) -> Network:
             m.weight.data = w
             if getattr(m, "bias", None) is not None:
                 m.bias.data = m.bias.data.to(m.dtype)
-    if isinstance(net, RangeNet):
-        net.walk_constants = net.batch_norm_constants()
+    if isinstance(net, (RangeNet, SqueezeSegV3)):
+        net.walk_constants = batch_norm_constants(net)
     return net
 
 
@@ -261,7 +271,7 @@ class Segmenter:
     they did, ``replayer.invalidations`` the eager ones by reason, and each
     call is a lap ``graph/segmenter/...`` on ``stopwatch``.
 
-    ``model`` is either network (:data:`Network`; a small darknet where it
+    ``model`` is any network (:data:`Network`; a small darknet where it
     is None); ``variables`` its weights as the weights file keeps them
     (:func:`_variables_of`), or None for seeded random ones."""
 
