@@ -114,9 +114,18 @@ and the exit code is non-zero:
      four shapes whose widths leave a partial tile or fit in one, within
      one bfloat16 ulp of its plain version on its own inputs (the unequal
      elements printed: 0 so far); each site shape's kernel ms alone in a
-     replayed graph beside its bytes bound and the plain version's ms; 23
-     launches a call, eager and replayed, counted as the path
-     ``segmenter_sac``, the only one that launches the kernel;
+     replayed graph beside its bytes bound and the plain version's ms; its
+     attention kernel (``csrc/sac_attention.cu``) on the same 23 calls and
+     on the four shapes at their channels against the library path (cuDNN
+     and ATen's bias add) and against float64, the unequal elements and
+     the largest ulps printed, held to at most one bfloat16 ulp of the sum
+     further from float64 than the library path (only the order of its
+     147-term sums differs; where the bias cancels the sum, ulps of the
+     result count the cancellation),
+     each site shape's ms beside its bytes and FLOPs bounds and the library
+     path's ms; 23 launches of each kernel a call, eager and replayed,
+     counted as the path ``segmenter_sac``, the only one that launches
+     them;
  14. kernel C (KNN label vote) against its plain version at 64x900 on two
      random inputs (forced depth ties, +-inf, NaN, all-invalid rows, ties
      across the wrap seam), an input of runs of equal range differences
@@ -242,8 +251,10 @@ none of D and E. It prints the card's name and power limit, one
 ``{"kernels": [...]}`` line with a record for kernel A, for kernel B at each
 shape that a path launched, for kernel C, the epilogue (``bn_act``, its
 ``ms``, ``bound_ms`` and ``plain_ms`` those of a darknet53 forward's calls
-in phase 13), the SAC kernel (``sac_modulate``, those of a SqueezeSegV3-53
-forward's calls in phase 13) and kernels D, E and F (``launches`` is
+in phase 13), the SAC kernel (``sac_modulate``) and the attention kernel
+(``sac_attention``, its ``library_ms`` cuDNN's convolution and ATen's bias
+add), those of a SqueezeSegV3-53 forward's calls in phase 13, and kernels D,
+E and F (``launches`` is
 the sum over the paths, ``launches_by_path`` the parts; what no path
 launches, a KITTI scan's projection (phase 3) and the two-stream render
 (phases 3 and 8), are listed in a ``{"held_off_path": [...]}`` line with 0
@@ -284,6 +295,7 @@ import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 SMS = 132
 SFU_PER_SM_PER_CLOCK = 16   # exp2, rsqrt, ...: results per SM per clock
@@ -2106,13 +2118,14 @@ def _zero_launch_counts():
                                                  gn_update, icp_products,
                                                  plain_on_cuda)
     from semantic_suma_tpu_torch.ops.knn import knn_clean_image
-    from semantic_suma_tpu_torch.ops.sac import sac_modulate
+    from semantic_suma_tpu_torch.ops.sac import sac_attention, sac_modulate
     from semantic_suma_tpu_torch.ops.zbuffer import zbuffer_cells
     bilateral_filter.launches = 0
     zbuffer_cells.launches = 0
     zbuffer_cells.launches_by_shape = {}
     knn_clean_image.launches = 0
     bn_act.launches = 0
+    sac_attention.launches = 0
     sac_modulate.launches = 0
     icp_products.launches = 0
     gn_update.launches = 0
@@ -3265,23 +3278,29 @@ SAC_ODD_SHAPES = ((2, 16, 5, 37), (1, 24, 7, 100), (1, 256, 3, 13),
                   (1, 8, 1, 1))
 
 
-def _sac_sites(net, x) -> list:
-    """The arguments of every ``sac_modulate`` call of one eager walk of
-    ``net`` on ``x``, in order."""
+def _sac_sites(net, x) -> tuple:
+    """The arguments of every ``sac_attention`` and every ``sac_modulate``
+    call of one eager walk of ``net`` on ``x``, in order: two lists."""
     from semantic_suma_tpu_torch.models import squeezesegv3
-    sites, real = [], squeezesegv3.sac_modulate
+    names = ("sac_attention", "sac_modulate")
+    reals = {k: getattr(squeezesegv3, k) for k in names}
+    sites = {k: [] for k in names}
 
-    def record(*a):
-        sites.append(a)
-        return real(*a)
+    def recorder(name):
+        def record(*a):
+            sites[name].append(a)
+            return reals[name](*a)
+        return record
 
-    squeezesegv3.sac_modulate = record
+    for k in names:
+        setattr(squeezesegv3, k, recorder(k))
     try:
         with torch.no_grad():
             net(x)
     finally:
-        squeezesegv3.sac_modulate = real
-    return sites
+        for k in names:
+            setattr(squeezesegv3, k, reals[k])
+    return sites["sac_attention"], sites["sac_modulate"]
 
 
 def _ulps(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -3308,14 +3327,140 @@ def _sac_odd_inputs(shape, dev, seed=5):
     return a, x, mean, mul, bias
 
 
+def _attention_odd_inputs(shape, dev, seed=7):
+    """Coordinates, weight and bias of a SAC block of ``C`` channels at an
+    ``(N, C, H, W)`` of ``SAC_ODD_SHAPES``, in the walk's layouts."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, c, h, w = shape
+    bf, cl = torch.bfloat16, torch.channels_last
+    p = (torch.randn(n, 3, h, w, generator=gen, device=dev) * 10).to(
+        bf).contiguous(memory_format=cl)
+    weight = (torch.randn(9 * c, 3, 7, 7, generator=gen, device=dev)
+              * 0.1).to(bf).contiguous(memory_format=cl)
+    bias = torch.randn(9 * c, generator=gen, device=dev).to(bf)
+    return p, weight, bias
+
+
+def _attention_f64(p, weight, bias) -> tuple:
+    """The attention's sum ``S`` in float64 on the same bfloat16 inputs, and
+    its value rounded as the module does: ``bf16(float(bf16(S)) +
+    float(b))``."""
+    import torch.nn.functional as F
+    s = F.conv2d(p.double(), weight.double(), padding=3)
+    return s, (s.to(torch.bfloat16).float()
+               + bias.float()[:, None, None]).to(torch.bfloat16)
+
+
+def _sum_ulps(got: torch.Tensor, want: torch.Tensor,
+              s: torch.Tensor) -> float:
+    """The largest ``|got - want|`` in bfloat16 ulps at the larger of
+    ``|s|`` and ``|want|``: the first rounding happens at the sum's scale,
+    so where the bias cancels the sum one ulp of ``S`` is many ulps of the
+    result, and a count of the result's own ulps measures the cancellation,
+    not the sum."""
+    scale = torch.maximum(s.abs(), want.double().abs()).clamp_min(1e-30)
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale)[1] - 8)
+    d = (got.double() - want.double()).abs() / ulp
+    return float(d.max()) if d.numel() else 0.0
+
+
+def attention_checks(dev, sites, tag: str) -> dict:
+    """The attention kernel (``csrc/sac_attention.cu``) on the ``sites`` (the
+    arguments of a forward's ``sac_attention`` calls) and on
+    ``SAC_ODD_SHAPES``: against the library path (``sac_attention_plain``:
+    cuDNN's convolution, then ATen's bias add) and against the float64 value
+    of the same inputs (``_attention_f64``), in bfloat16 ulps of the result
+    and of the sum (``_sum_ulps``); held: on every call the kernel's largest
+    distance from the float64 value at most one ulp of the sum beyond the
+    library path's. Then each site shape's kernel ms alone in a
+    replayed graph beside its bytes and FLOPs bounds and the library path's
+    ms. Returns the kernel's record (``max_abs_err``: its largest distance
+    from the library path in bfloat16 ulps of the sum)."""
+    from semantic_suma_tpu_torch.ops import sac
+    calls = [*sites, *(_attention_odd_inputs(s, dev) for s in SAC_ODD_SHAPES)]
+    unequal, total, worse = 0, 0, []
+    to_lib, to_f64, lib_f64 = 0, 0, 0      # ulps of the results
+    s_lib, s_f64, s_lib_f64 = 0.0, 0.0, 0.0    # ulps of the sums
+    with torch.no_grad():
+        for i, args in enumerate(calls):
+            got = sac.sac_attention(*args)
+            lib = sac.sac_attention_plain(*args)
+            s64, ref = _attention_f64(*args)
+            u, d = _ulps(got, lib)
+            unequal, total = unequal + u, total + got.numel()
+            to_lib = max(to_lib, d)
+            to_f64 = max(to_f64, _ulps(got, ref)[1])
+            lib_f64 = max(lib_f64, _ulps(lib, ref)[1])
+            e_got, e_lib = _sum_ulps(got, ref, s64), _sum_ulps(lib, ref, s64)
+            s_lib = max(s_lib, _sum_ulps(got, lib, s64))
+            s_f64, s_lib_f64 = max(s_f64, e_got), max(s_lib_f64, e_lib)
+            if e_got > e_lib + 1:
+                worse.append((i, e_got, e_lib))
+            del got, lib, s64, ref
+    print(f"[segmenter-sac] {tag}: attention, {len(sites)} calls of a "
+          f"forward and {len(SAC_ODD_SHAPES)} odd shapes: against the library "
+          f"path (cuDNN + ATen's bias add) {unequal} of {total} elements "
+          f"unequal, at most {to_lib} bfloat16 ulp of the result, "
+          f"{s_lib:.3f} of the sum; from the float64 value at most {to_f64} "
+          f"ulp of the result (kernel) and {lib_f64} (library), {s_f64:.3f} "
+          f"and {s_lib_f64:.3f} ulp of the sum (held: the kernel's within "
+          "one of the library's on every call)")
+    if worse:
+        raise AssertionError(f"segmenter-sac: {tag}: the attention kernel "
+                             "lies more than one ulp of the sum further from "
+                             "float64 than the library path (call, kernel, "
+                             f"library): {worse}")
+    by_shape: dict = {}
+    for args in sites:
+        by_shape.setdefault((tuple(args[0].shape), tuple(args[1].shape)),
+                            [args, 0])[1] += 1
+    tot = {"kernel": 0.0, "bound": 0.0, "library": 0.0, "bytes": 0,
+           "flops": 0}
+    with torch.no_grad():
+        for (pshape, wshape), (args, count) in by_shape.items():
+            k_ms = min(graph_ms(lambda: sac.sac_attention(*args), 50)
+                       for _ in range(2))
+            l_ms = graph_ms(lambda: sac.sac_attention_plain(*args), 20)
+            n, _, h, w = pshape
+            out = n * wshape[0] * h * w
+            nbytes = 2 * (out + sum(a.numel() for a in args))
+            flops = 2 * 147 * out
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            f_ms = flops / BF16_FLOP_PER_S * 1e3
+            for k, v in (("kernel", k_ms), ("bound", max(b_ms, f_ms)),
+                         ("library", l_ms), ("bytes", nbytes),
+                         ("flops", flops)):
+                tot[k] += v * count
+            print(f"[segmenter-sac] {tag} attention p {list(pshape)} -> "
+                  f"{wshape[0]} x{count}: kernel {k_ms:.5f} ms, bytes bound "
+                  f"{b_ms:.5f} ms ({nbytes} B, {100 * b_ms / k_ms:.1f}% of "
+                  f"it), FLOPs bound {f_ms:.5f} ms ({flops} FLOP, "
+                  f"{flops / k_ms / 1e9:.1f} TFLOP/s), library {l_ms:.5f} ms")
+    print(f"[segmenter-sac] {tag}: a forward's {len(sites)} attention calls: "
+          f"kernel {tot['kernel']:.4f} ms, bound {tot['bound']:.4f} ms "
+          f"(bytes, {tot['bytes'] / 1e9:.3f} GB; "
+          f"{100 * tot['bound'] / tot['kernel']:.1f}% of it), "
+          f"{tot['flops'] / 1e9:.2f} GFLOP, library {tot['library']:.4f} ms")
+    return {"name": "sac_attention", "route": "cuda",
+            "shape": f"SqueezeSegV3-53 attention, {len(sites)} calls",
+            "source": "semantic_suma_tpu_torch/csrc/sac_attention.cu",
+            "replaces": "none (the JAX package has no SqueezeSegV3); cuDNN's "
+                        "fprop and ATen's bias add",
+            "max_abs_err": s_lib, "ms": tot["kernel"],
+            "plain_ms": tot["library"], "bound_ms": tot["bound"],
+            "bound_by": "bytes", "library_ms": tot["library"]}
+
+
 def sac_checks(dev, seg, scans, tag: str) -> tuple:
     """The SAC kernel in ``seg``'s SqueezeSegV3 walk on the first of
     ``scans`` (64x2048 projections): each call of a forward against its plain
     version on its own inputs, and on ``SAC_ODD_SHAPES``; each site shape's
     kernel ms alone in a replayed graph beside its bytes bound and the plain
-    version's ms; the launches of ``Segmenter.__call__`` on every scan (an
+    version's ms; the attention kernel likewise (``attention_checks``); the
+    launches of both kernels in ``Segmenter.__call__`` on every scan (an
     eager call, a capture, replays), counted from zero as a path's. Returns
-    ``(the kernel's record, the path's launch counts)``."""
+    ``(the SAC kernel's record, the attention kernel's record, the path's
+    launch counts)``."""
     from semantic_suma_tpu_torch.models.rangenet import make_input
     from semantic_suma_tpu_torch.ops import sac
     from semantic_suma_tpu_torch.ops.projection import project_scan
@@ -3324,7 +3469,7 @@ def sac_checks(dev, seg, scans, tag: str) -> tuple:
                        cfg=seg.cfg)
     x = make_input(res.vertex_map, res.depth_map, res.remission,
                    res.vertex_valid)[None]
-    sites = _sac_sites(seg.net, x)
+    att_sites, sites = _sac_sites(seg.net, x)
     unequal, ulps, total = 0, 0, 0
     with torch.no_grad():
         for args in [*sites, *(_sac_odd_inputs(s, dev)
@@ -3361,25 +3506,29 @@ def sac_checks(dev, seg, scans, tag: str) -> tuple:
           f"({tot['bytes'] / 1e9:.3f} GB, "
           f"{100 * tot['bound'] / tot['kernel']:.1f}% of the roofline), "
           f"plain {tot['plain']:.4f} ms")
+    rec_att = attention_checks(dev, att_sites, tag)
     _zero_launch_counts()
-    per_call = []
+    per_call, att_per_call = [], []
     for s in scans:
-        n0 = sac.sac_modulate.launches
+        n0, a0 = sac.sac_modulate.launches, sac.sac_attention.launches
         seg(s.points)
         per_call.append(sac.sac_modulate.launches - n0)
+        att_per_call.append(sac.sac_attention.launches - a0)
     torch.cuda.synchronize()
     counts = _read_launch_counts()
     print(f"[segmenter-sac] {tag} through Segmenter.__call__ on {len(scans)} "
           f"scans: calls {dict(seg.replayer.counts['segmenter'])}, "
-          f"sac_modulate launches a call {per_call}, the epilogue's "
-          f"{counts['bn_act']} in all")
+          f"sac_modulate launches a call {per_call}, sac_attention's "
+          f"{att_per_call}, the epilogue's {counts['bn_act']} in all")
     if ulps > 1:
         raise AssertionError(f"segmenter-sac: {tag}: {unequal} elements "
                              f"unequal to the plain version, up to {ulps} "
                              "ulp")
-    if len(sites) != SAC_SITES or any(n != SAC_SITES for n in per_call):
-        raise AssertionError(f"segmenter-sac: {tag}: {len(sites)} sites, "
-                             f"{per_call} launches, not {SAC_SITES}")
+    if len(sites) != SAC_SITES or len(att_sites) != SAC_SITES \
+            or any(n != SAC_SITES for n in per_call + att_per_call):
+        raise AssertionError(f"segmenter-sac: {tag}: {len(sites)} and "
+                             f"{len(att_sites)} sites, {per_call} and "
+                             f"{att_per_call} launches, not {SAC_SITES}")
     rec = {"name": "sac_modulate", "route": "cuda",
            "shape": f"SqueezeSegV3-53 {seg.cfg.height}x{seg.cfg.width}, "
                     f"{len(sites)} calls",
@@ -3388,17 +3537,19 @@ def sac_checks(dev, seg, scans, tag: str) -> tuple:
            "max_abs_err": float(ulps), "ms": tot["kernel"],
            "plain_ms": tot["plain"], "bound_ms": tot["bound"],
            "bound_by": "bytes", "library_ms": None}
-    return rec, counts
+    return rec, rec_att, counts
 
 
 def phase_segmenter_sac(dev):
-    """``[segmenter-sac]``: the SAC kernel (``csrc/sac.cu``) in
-    SqueezeSegV3-53's walk, with ``weights/segmenter_ssgv3_synth.pkl`` at
-    64x2048 on scans of its cell (``sac_checks``). Held: every call of a
-    forward and every odd shape within one bfloat16 ulp of its plain
-    version (the unequal elements counted and printed);
-    ``SAC_SITES`` launches a call, eager and replayed. Returns the kernel's
-    record and the path's launch counts."""
+    """``[segmenter-sac]``: the SAC kernel (``csrc/sac.cu``) and the
+    attention kernel (``csrc/sac_attention.cu``) in SqueezeSegV3-53's walk,
+    with ``weights/segmenter_ssgv3_synth.pkl`` at 64x2048 on scans of its
+    cell (``sac_checks``). Held: every call of a forward and every odd shape
+    within one bfloat16 ulp of the SAC kernel's plain version (the unequal
+    elements counted and printed), and the attention no more than one ulp
+    further from float64 than the library path; ``SAC_SITES`` launches of
+    each a call, eager and replayed. Returns the two kernels' records and
+    the path's launch counts."""
     from semantic_suma_tpu_torch.config import DataConfig
     from semantic_suma_tpu_torch.models.segmenter import Segmenter
     from suma_bench import harness
@@ -4187,8 +4338,8 @@ def _cli(argv):
 def _sum_launches(ranks) -> dict:
     """The ranks' launch counts summed, in ``_read_launch_counts``' form."""
     singles = ("bilateral_filter", "zbuffer_cells", "knn_clean_image",
-               "bn_act", "sac_modulate", "icp_products", "gn_update",
-               "gn_loop",
+               "bn_act", "sac_attention", "sac_modulate", "icp_products",
+               "gn_update", "gn_loop",
                "evaluate_calls", "build_rows_on_cuda")
     out = {k: 0 for k in singles}
     out["zbuffer_cells_by_shape"] = {}
@@ -4752,7 +4903,8 @@ def main() -> int:
     seg_image = timed("segmenter", phase_segmenter, dev)
     timed("segmenter-graph", phase_segmenter_graph, dev)
     rec_bn = timed("segmenter-epilogue", phase_segmenter_epilogue, dev)
-    rec_sac, sac_path = timed("segmenter-sac", phase_segmenter_sac, dev)
+    rec_sac, rec_att, sac_path = timed("segmenter-sac", phase_segmenter_sac,
+                                       dev)
     rec_c = timed("knn", phase_knn, dev, floors, seg_image)
     rec_d, rec_e, rec_f = timed("icp", phase_icp, dev, floors)
     timed("miou", phase_miou, dev)
@@ -4798,13 +4950,13 @@ def main() -> int:
     rec_c["launches_by_path"] = {k: v["knn_clean_image"]
                                  for k, v in paths.items()}
     rec_bn["launches_by_path"] = {k: v["bn_act"] for k, v in paths.items()}
-    rec_sac["launches_by_path"] = {k: v["sac_modulate"]
-                                   for k, v in paths.items()}
-    # the SAC kernel runs where SqueezeSegV3 runs, and nowhere else
-    if any(n for k, n in rec_sac["launches_by_path"].items()
-           if k != "segmenter_sac"):
-        raise AssertionError(f"sac_modulate launched without SqueezeSegV3: "
-                             f"{rec_sac['launches_by_path']}")
+    # the SAC kernels run where SqueezeSegV3 runs, and nowhere else
+    for rec, key in ((rec_sac, "sac_modulate"), (rec_att, "sac_attention")):
+        rec["launches_by_path"] = {k: v[key] for k, v in paths.items()}
+        if any(n for k, n in rec["launches_by_path"].items()
+               if k != "segmenter_sac"):
+            raise AssertionError(f"{key} launched without SqueezeSegV3: "
+                                 f"{rec['launches_by_path']}")
     for rec, key in ((rec_d, "icp_products"), (rec_e, "gn_update"),
                      (rec_f, "gn_loop")):
         rec["launches_by_path"] = {k: v[key] for k, v in paths.items()}
@@ -4832,7 +4984,8 @@ def main() -> int:
             for k, v in paths.items()}
         rec.update(real.get(rec["shape"], {}))
     on_path, off_path = [], []
-    for rec in (rec_a, *recs_b, rec_c, rec_bn, rec_sac, rec_d, rec_e, rec_f):
+    for rec in (rec_a, *recs_b, rec_c, rec_bn, rec_sac, rec_att, rec_d, rec_e,
+                rec_f):
         rec["launches"] = sum(rec["launches_by_path"].values())
         (on_path if rec["launches"] else off_path).append(rec)
     # a kernel of a path must have run on it; a shape that no path launches

@@ -403,13 +403,14 @@ def _launch_counts() -> dict:
     from .ops.icp import (evaluate, gn_loop, gn_update, icp_products,
                           plain_on_cuda)
     from .ops.knn import knn_clean_image
-    from .ops.sac import sac_modulate
+    from .ops.sac import sac_attention, sac_modulate
     from .ops.zbuffer import zbuffer_cells
     return {"bilateral_filter": bilateral_filter.launches,
             "zbuffer_cells": zbuffer_cells.launches,
             "zbuffer_cells_by_shape": dict(zbuffer_cells.launches_by_shape),
             "knn_clean_image": knn_clean_image.launches,
             "bn_act": bn_act.launches,
+            "sac_attention": sac_attention.launches,
             "sac_modulate": sac_modulate.launches,
             "icp_products": icp_products.launches,
             "gn_update": gn_update.launches,

@@ -107,6 +107,7 @@ def _slots():
             ("zbuffer_cells", zbuffer.zbuffer_cells, "launches"),
             ("knn_clean_image", knn.knn_clean_image, "launches"),
             ("bn_act", epilogue.bn_act, "launches"),
+            ("sac_attention", sac.sac_attention, "launches"),
             ("sac_modulate", sac.sac_modulate, "launches"),
             ("icp_products", icp.icp_products, "launches"),
             ("gn_update", icp.gn_update, "launches"),

@@ -53,12 +53,13 @@ Departures from SAC.py, each also in the configuration's ``assumed``:
 
 In ``eval()`` mode, with bfloat16 convolutions, :meth:`SqueezeSegV3.forward`
 walks the same submodules another way (:meth:`SqueezeSegV3._walk`): a SAC
-block is its attention convolution, one call of ``ops/sac.sac_modulate``
-(``csrc/sac.cu`` on the card) for ``U * A``, its 1x1 convolution, one call
-of the batch-norm epilogue (``ops/epilogue.bn_act``, slope 0), its 3x3
-convolution and one more, which adds the residual; the stem, the
-downsamplings and the decoder are darknet's walk. Training keeps the module
-forwards, each SAC block under activation checkpointing.
+block is one call of ``ops/sac.sac_attention`` for its attention convolution
+and bias (``csrc/sac_attention.cu`` on the card), one call of
+``ops/sac.sac_modulate`` (``csrc/sac.cu``) for ``U * A``, its 1x1
+convolution, one call of the batch-norm epilogue (``ops/epilogue.bn_act``,
+slope 0), its 3x3 convolution and one more, which adds the residual; the
+stem, the downsamplings and the decoder are darknet's walk. Training keeps
+the module forwards, each SAC block under activation checkpointing.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.epilogue import bn_act
-from ..ops.sac import TAPS, sac_modulate
+from ..ops.sac import TAPS, sac_attention, sac_modulate
 from .labels import TRAIN_CLASSES
 from .rangenet import (IN_CHANNELS, BatchNorm, Conv, ConvBlock,
                        ConvTranspose, Decoder, ResidualBlock,
@@ -147,10 +148,11 @@ class SqueezeSegV3(nn.Module):
     starts in ``eval()`` mode (running statistics); ``train()`` switches
     batch norm to the batch's statistics.
 
-    In ``train()`` mode or with convolutions in another type than bfloat16
-    (a float32 network checks the arithmetic against the reference), the
-    forward calls the module forwards; otherwise it takes :meth:`_walk`,
-    which computes the same logits."""
+    In ``train()`` mode, with convolutions in another type than bfloat16
+    (a float32 network checks the arithmetic against the reference) or with
+    a layer split over a ``model_group`` (the attention kernel takes whole
+    weights), the forward calls the module forwards; otherwise it takes
+    :meth:`_walk`, which computes the same logits."""
 
     def __init__(self, num_classes: int = len(TRAIN_CLASSES),
                  stage_blocks: Sequence[int] = (1, 2, 8, 8, 4),
@@ -229,9 +231,10 @@ class SqueezeSegV3(nn.Module):
         return self.Decoder_0(xf, skips)
 
     def _walk(self, x: torch.Tensor) -> torch.Tensor:
-        """The network in evaluation mode, one ``sac_modulate`` call a SAC
-        block and one epilogue call a batch norm elsewhere: the float32
-        features the head reads (``RangeNet._walk``'s pairs)."""
+        """The network in evaluation mode, one ``sac_attention`` and one
+        ``sac_modulate`` call a SAC block and one epilogue call a batch norm
+        elsewhere: the float32 features the head reads (``RangeNet._walk``'s
+        pairs)."""
         consts = (self.walk_constants if self.walk_constants is not None
                   else batch_norm_constants(self))
         cl = torch.channels_last if x.is_cuda else torch.contiguous_format
@@ -248,7 +251,8 @@ class SqueezeSegV3(nn.Module):
                 # the float32 stream only where a SAC block adds it next
                 nxt = left > 0 and (stage.down is None or
                                     j + 1 < len(stage.blocks))
-                m = sac_modulate(blk.attention(pb), xb,
+                att = blk.attention
+                m = sac_modulate(sac_attention(pb, att.weight, att.bias), xb,
                                  *consts[blk.bn_attention])
                 _, hb = bn_act(blk.conv1(m), *consts[blk.bn1], f32=False,
                                bf16=True, slope=0.0)
@@ -271,7 +275,9 @@ class SqueezeSegV3(nn.Module):
         x = x.permute(0, 3, 1, 2)                 # NCHW view of NHWC memory
         if pad:
             x = torch.cat([x, x[:, :, :, :pad]], dim=3)   # wrap-pad
-        if self.training or self.dtype != torch.bfloat16:
+        if self.training or self.dtype != torch.bfloat16 or any(
+                getattr(m, "model_group", None) is not None
+                for m in self.modules()):
             y = self._modules_forward(x)
         else:
             y = self._walk(x)

@@ -4,7 +4,9 @@ paths it takes: the float32 network equals the reference at two small shapes
 (one that needs the width wrap-padded); the bfloat16 network stays within a
 bound that the float8 control breaks; the plain SAC modulation is
 ``F.unfold(x) * sigmoid(BN(a))`` bit for bit, in F.unfold's channel order;
-the inference walk gives the module forwards' logits bit for bit with one
+the attention with its bias on the CPU is the block's attention convolution
+bit for bit, and a tensor on no CPU or CUDA device is refused; the inference
+walk gives the module forwards' logits bit for bit with one attention and one
 modulation a SAC block; the epilogue at slope 0 is a ReLU; a blob saved with
 ``arch`` ``"squeezesegv3"`` loads back as SqueezeSegV3 through
 ``Segmenter.load``, and the reference refuses a darknet blob; its FLOP count
@@ -36,7 +38,9 @@ from semantic_suma_tpu_torch.models.segmenter import (Segmenter,
 from semantic_suma_tpu_torch.models.squeezesegv3 import (SqueezeSegV3,
                                                          small_squeezesegv3)
 from semantic_suma_tpu_torch.ops.epilogue import bn_act_plain
-from semantic_suma_tpu_torch.ops.sac import sac_modulate, sac_modulate_plain
+from semantic_suma_tpu_torch.ops.sac import (sac_attention,
+                                             sac_attention_plain,
+                                             sac_modulate, sac_modulate_plain)
 from suma_bench import harness
 
 SEED = 2**31 + 25
@@ -165,6 +169,38 @@ def test_plain_modulation_is_unfold_times_sigmoid_of_batch_norm():
         assert torch.equal(ones[:, t::9], shifted)
 
 
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("w", [99, 128])
+@pytest.mark.parametrize("c", [8, 24])
+def test_attention_is_the_block_attention(c, w, n):
+    """``sac_attention`` on the CPU is ``blk.attention(pb)`` bit for bit,
+    from the float32 master weight and bias that it casts; its plain version
+    is ``F.conv2d`` with the bfloat16 weight and bias, padding 3."""
+    blk = sq.SACBlock(c).eval()
+    att = blk.attention
+    gen = _gen(SEED + 97 * c + w + n)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        att.weight.copy_(torch.randn(att.weight.shape, generator=gen) * 0.2)
+        att.bias.copy_(torch.randn(att.bias.shape, generator=gen))
+        pb = (torch.randn(n, 3, 6, w, generator=gen) * 10.0).to(bf)
+        want = att(pb)
+        got = sac_attention(pb, att.weight, att.bias)
+        plain = sac_attention_plain(pb, att.weight, att.bias)
+        lib = F.conv2d(pb, att.weight.to(bf), att.bias.to(bf), padding=3)
+    assert got.dtype == bf and got.shape == (n, 9 * c, 6, w)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(plain.view(torch.int16), lib.view(torch.int16))
+
+
+def test_attention_refuses_a_meta_tensor():
+    with torch.device("meta"):
+        pb = torch.zeros(1, 3, 4, 8, dtype=torch.bfloat16)
+        weight, bias = torch.zeros(72, 3, 7, 7), torch.zeros(72)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sac_attention(pb, weight, bias)
+
+
 def test_epilogue_slope_zero_is_relu():
     """The plain epilogue at slope 0 against ``F.relu`` of the same batch
     norm (equal values; a negative input gives -0.0, ``v * 0``, where
@@ -188,10 +224,15 @@ def test_epilogue_slope_zero_is_relu():
 
 @pytest.fixture
 def counted(monkeypatch):
-    """The walk's calls of ``sac_modulate`` and of the epilogue."""
-    box = {"sac": 0, "bn_act": 0}
-    real_sac, real_bn = sq.sac_modulate, sq.bn_act
+    """The walk's calls of ``sac_attention``, ``sac_modulate`` and the
+    epilogue."""
+    box = {"attention": 0, "sac": 0, "bn_act": 0}
+    real_att, real_sac, real_bn = sq.sac_attention, sq.sac_modulate, sq.bn_act
     real_rn = rn.bn_act
+
+    def attention(*a, **kw):
+        box["attention"] += 1
+        return real_att(*a, **kw)
 
     def sac(*a, **kw):
         box["sac"] += 1
@@ -203,6 +244,7 @@ def counted(monkeypatch):
             return real(*a, **kw)
         return call
 
+    monkeypatch.setattr(sq, "sac_attention", attention)
     monkeypatch.setattr(sq, "sac_modulate", sac)
     monkeypatch.setattr(sq, "bn_act", bn(real_bn))
     monkeypatch.setattr(rn, "bn_act", bn(real_rn))
@@ -212,8 +254,8 @@ def counted(monkeypatch):
 @pytest.mark.parametrize("w", [128, 99])
 def test_walk_equals_the_module_forwards(counted, w):
     """The bfloat16 network in ``eval()`` mode takes the walk: the logits of
-    the module forwards bit for bit, with one ``sac_modulate`` a SAC block
-    and one epilogue call a batch norm elsewhere (3 a SAC block's two, the
+    the module forwards bit for bit, with one ``sac_attention`` and one
+    ``sac_modulate`` a SAC block and one epilogue call a batch norm elsewhere (3 a SAC block's two, the
     stem's, the downsamplings', the stride-1 stages' and the decoder's: 32
     for the small network); ``Segmenter``'s inference copy holds the walk's
     constants and gives the same logits."""
@@ -222,7 +264,8 @@ def test_walk_equals_the_module_forwards(counted, w):
     x = _input(16, w)
     with torch.no_grad():
         walk = net(x)
-        n_sac, n_bn = counted["sac"], counted["bn_act"]
+        n_att, n_sac, n_bn = (counted["attention"], counted["sac"],
+                              counted["bn_act"])
         xp = x.permute(0, 3, 1, 2)
         pad = (-w) % sq.DOWNSAMPLE
         if pad:
@@ -231,7 +274,7 @@ def test_walk_equals_the_module_forwards(counted, w):
         mods = mods.permute(0, 2, 3, 1)
     assert torch.equal(walk, mods)
     blocks = sum(SMALL[0])
-    assert n_sac == blocks
+    assert n_att == n_sac == blocks
     assert n_bn == 2 * blocks + 1 + 3 + 2 * 3 + 3 * 4
     seg = Segmenter(DataConfig(height=16, width=w), model=net,
                     variables=arrays_from_state(net.state_dict()),
